@@ -1,0 +1,64 @@
+"""PNG image I/O.
+
+The reference vendors stb_image / stb_image_write purely for PNG dumps
+(``src/Splats.cpp:516-540`` ``saveImage``). Here we use PIL when available and
+fall back to a minimal pure-Python PNG codec (zlib + filters) so the framework
+has zero hard image dependencies.
+"""
+
+from __future__ import annotations
+
+import struct
+import zlib
+
+import numpy as np
+
+try:
+    from PIL import Image  # type: ignore
+
+    _HAVE_PIL = True
+except Exception:  # pragma: no cover
+    _HAVE_PIL = False
+
+
+def to_uint8(image: np.ndarray) -> np.ndarray:
+    """Float image in [0, 1] (H, W, 3|4) -> uint8, clamped like ``saveImage``."""
+    img = np.asarray(image)
+    if img.dtype != np.uint8:
+        img = np.clip(img, 0.0, 1.0)
+        img = (img * 255.0 + 0.5).astype(np.uint8)
+    return img
+
+
+def save_png(path: str, image: np.ndarray) -> None:
+    """Save (H, W, 3|4) image; float inputs are interpreted as [0, 1]."""
+    img = to_uint8(image)
+    if img.ndim == 2:
+        img = np.stack([img] * 3, axis=-1)
+    if _HAVE_PIL:
+        Image.fromarray(img).save(path)
+        return
+    _write_png_fallback(path, img)  # pragma: no cover
+
+
+def load_png(path: str) -> np.ndarray:
+    """Load a PNG as float32 (H, W, C) in [0, 1]."""
+    if _HAVE_PIL:
+        return np.asarray(Image.open(path), dtype=np.float32) / 255.0
+    raise RuntimeError("PNG loading requires PIL")  # pragma: no cover
+
+
+def _write_png_fallback(path: str, img: np.ndarray) -> None:  # pragma: no cover
+    h, w, c = img.shape
+    color_type = {3: 2, 4: 6}[c]
+    raw = b"".join(b"\x00" + img[i].tobytes() for i in range(h))
+
+    def chunk(tag: bytes, data: bytes) -> bytes:
+        return (struct.pack(">I", len(data)) + tag + data
+                + struct.pack(">I", zlib.crc32(tag + data) & 0xFFFFFFFF))
+
+    ihdr = struct.pack(">IIBBBBB", w, h, 8, color_type, 0, 0, 0)
+    png = (b"\x89PNG\r\n\x1a\n" + chunk(b"IHDR", ihdr)
+           + chunk(b"IDAT", zlib.compress(raw, 6)) + chunk(b"IEND", b""))
+    with open(path, "wb") as f:
+        f.write(png)
