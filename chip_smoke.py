@@ -7,21 +7,38 @@ Builds the port's CUDA kernels from ``openglgaussiansplattingrenderer_tpu_torch/
 csrc`` (nvcc, at first use), then:
 
 1. prints the card, its power limit, the PyTorch version and the build time;
-2. holds each kernel against its plain PyTorch version on the card at the
-   render path's shapes (prefix sum and expansion on the flagship frame:
-   bit-equal; compositor on the 10k-splat gate scene: image max abs diff
-   <= 5e-3 with <= 10 px above 1e-3) and times both (CUDA events, median);
+2. holds each of the five kernels against its plain PyTorch version on the
+   card and times both (CUDA events, median), beside the least time the
+   card could take for the same work (``bound_ms``) and, where one PyTorch
+   call computes the same function, that call's time (``library_ms``):
+   prefix sum and expansion on the flagship frame, bit-equal; segment sum
+   on the flagship frame's shapes with a seeded cotangent; compositor
+   forward (image max abs diff <= 5e-3 with <= 10 px above 1e-3) and
+   backward (per row within 5e-3 of the row's largest gradient) on the
+   10k-splat gate scene, each backward fed its own forward's output;
 3. drives the render path through ``render_arrays`` at the reference's
    operating point (3,616,103 splats at 1024x512, uniform and clustered
    scenes), with every kernel launch counter reset just before and read
    just after; checks zero overflow, a finite image with coverage, every
-   kernel launched, the uniform frame against the all-plain pipeline, and
-   a small frame against the port's CPU path;
-4. prints each flagship frame's per-stage device times (CUDA events), then
-   a JSON line of per-kernel results and, last, the device line.
+   forward kernel launched, the uniform frame against the all-plain
+   pipeline, and a small frame against the port's CPU path;
+4. prints each flagship frame's per-stage device times (CUDA events);
+5. drives the training path: five Adam steps of ``make_train_step`` (L1 +
+   D-SSIM, per-splat densification statistic) on the uniform flagship scene
+   with perturbed colours against its clean render, counters reset just
+   before and read just after; checks finite gradients, zero overflow, a
+   falling loss and all five kernels launched; times forward + backward
+   and the whole step;
+6. times one forward + backward of the clustered flagship and of the
+   1,000,000-splat 1920x1080 scene, and holds a small frame's gradients
+   on the card against the port's CPU path;
+7. prints a JSON line of per-kernel results and, last, the device line.
 
 Every check raises on failure; the exit code is nonzero and no result line
 is printed. There is no fallback: without CUDA the script exits 1.
+
+``python3 chip_smoke.py --kernels-only`` stops after phase 2 (a short run
+that builds and checks new kernels); it prints no result line.
 """
 
 from __future__ import annotations
@@ -35,16 +52,43 @@ import time
 FLAG_SPLATS = 3_616_103            # the reference's bike-big.ply
 FLAG_W, FLAG_H = 1024, 512         # the reference's default resolution
 GATE_SPLATS, GATE_W, GATE_H = 10_000, 512, 512
-REPS = 10
+MSPLATS, MSPLATS_W, MSPLATS_H, MSPLATS_CHUNK = 1_000_000, 1920, 1080, 128
+REPS = 5
+TRAIN_STEPS = 5
 GATE_MAX_ABS, GATE_MAX_PX = 5e-3, 10
+# Compositor backward against its plain version, of the row's largest plain
+# gradient. Sequential and scanned transmittance round differently, so a
+# record at the saturation edge could flip and move a row by up to ~5e-3;
+# on the gate scene none does (measured 1.4e-6, no record beyond 1e-3), so
+# the limit is held two orders above what the run shows, not at 5e-3.
+BWD_ROW_TOL = 1e-4
+SEGSUM_ROW_TOL = 1e-5              # of the row's largest plain sum
+GRAD_REL_TOL = 5e-3                # card vs CPU path, per parameter tensor
+
+# The card's published peaks (NVIDIA H100 SXM data sheet): device memory
+# rate and float32 rate outside the tensor cores (a multiply-add counts 2).
+HBM_BYTES_PER_S = 3.35e12
+FP32_FLOP_PER_S = 67e12
+# Float operations a (pixel, record) pair costs the compositor, counted
+# from the kernels' arithmetic with expf as one operation: every visited
+# pair pays u, v, the power, expf, the opacity product and the clamp (12);
+# a blended pair adds the weight, three colour multiply-adds and the
+# transmittance update in the forward (9), and in the backward e, D, the
+# colour sums, dabar, dpower, dx, dy, the six moment sums and the
+# transmittance update (33).
+FWD_FLOP_VISITED, FWD_FLOP_BLENDED = 12, 9
+BWD_FLOP_VISITED, BWD_FLOP_BLENDED = 12, 33
 
 PKG = "openglgaussiansplattingrenderer_tpu_torch"
 TPU_PKG = "openglgaussiansplattingrenderer_tpu"
 KERNELS = {
     "cumsum": (f"{PKG}/csrc/scan.cu", f"{TPU_PKG}/ops/pallas/scan.py:37"),
     "expand": (f"{PKG}/csrc/expand.cu", f"{TPU_PKG}/ops/pallas/records.py:405"),
+    "segsum": (f"{PKG}/csrc/segsum.cu", f"{TPU_PKG}/ops/pallas/records.py:536"),
     "composite": (f"{PKG}/csrc/composite.cu",
                   f"{TPU_PKG}/ops/pallas/composite.py:237"),
+    "composite_bwd": (f"{PKG}/csrc/composite_bwd.cu",
+                      f"{TPU_PKG}/ops/pallas/composite.py:385"),
 }
 
 
@@ -74,6 +118,34 @@ def image_diff(a, b):
     """(max abs diff, pixels whose max channel diff exceeds 1e-3)."""
     d = (a - b).abs()
     return float(d.max()), int((d.amax(dim=-1) > 1e-3).sum())
+
+
+def bound(nbytes: float, flops: float) -> dict:
+    """The least time the card could take: the larger of the bytes over
+    the memory rate and the operations over the float32 rate."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_flops = flops / FP32_FLOP_PER_S * 1e3
+    return {"bound_ms": max(t_bytes, t_flops),
+            "bound_by": "bytes" if t_bytes >= t_flops else "operations"}
+
+
+def kernel_wrappers():
+    """name -> wrapper holding the launch counter, in KERNELS' order."""
+    from openglgaussiansplattingrenderer_tpu_torch.ops.kernels import composite as kc
+    from openglgaussiansplattingrenderer_tpu_torch.ops.kernels import records as kr
+    from openglgaussiansplattingrenderer_tpu_torch.ops.kernels import scan as ks
+
+    return {"cumsum": ks.cumsum, "expand": kr.expand, "segsum": kr.segsum,
+            "composite": kc.composite, "composite_bwd": kc.composite_bwd}
+
+
+def reset_launches() -> None:
+    for fn in kernel_wrappers().values():
+        fn.launches = 0
+
+
+def read_launches() -> dict:
+    return {k: fn.launches for k, fn in kernel_wrappers().items()}
 
 
 class Frame:
@@ -110,6 +182,27 @@ class Frame:
 
         return render_arrays(self.params, *self.args, self.cfg)
 
+    def grads(self, loss):
+        """One forward + backward: ({name: gradient}, stats) of
+        ``loss(image)`` with respect to every parameter tensor."""
+        import torch
+
+        from openglgaussiansplattingrenderer_tpu_torch.render import render_arrays
+
+        p = {k: v.detach().requires_grad_(True) for k, v in self.params.items()}
+        img, stats = render_arrays(p, *self.args, self.cfg)
+        return dict(zip(p, torch.autograd.grad(loss(img), list(p.values())))), stats
+
+    def sorted_records(self):
+        """(sorted fields, bounds) through the kernels, as the frame makes them."""
+        from openglgaussiansplattingrenderer_tpu_torch.ops import fastpath
+        from openglgaussiansplattingrenderer_tpu_torch.ops.kernels import records as kr
+        from openglgaussiansplattingrenderer_tpu_torch.ops.kernels import scan as ks
+
+        table, counts, ekw = self.table()
+        rec = kr.expand(*table, ks.cumsum(counts), **ekw)
+        return fastpath.sort_records(*rec, self.cfg)
+
     def table(self):
         """((fields, tile_min, tile_ext, depth), counts, expand kwargs)."""
         from openglgaussiansplattingrenderer_tpu_torch.ops import fastpath
@@ -135,8 +228,9 @@ class Frame:
 
         return assemble_image(tiled[:, :, :3], tiled[:, :, 3], *self.size, self.cfg)
 
-    def plain_render(self):
-        """The whole frame through the plain versions of every kernel."""
+    def plain_render(self, pair_counts=None):
+        """The whole frame through the plain versions of every kernel;
+        ``pair_counts`` receives the compositor's (pixel, record) work."""
         from openglgaussiansplattingrenderer_tpu_torch.ops import fastpath
         from openglgaussiansplattingrenderer_tpu_torch.ops.kernels import composite as kc
         from openglgaussiansplattingrenderer_tpu_torch.ops.kernels import records as kr
@@ -146,24 +240,32 @@ class Frame:
         rec = kr.expand_plain(*table, ks.cumsum_plain(counts), **ekw)
         sf, bounds = fastpath.sort_records(*rec, self.cfg)
         ox, oy, ckw = self.composite_inputs(sf)
-        return self.image(kc.composite_plain(sf, bounds, ox, oy, **ckw))
+        if pair_counts is not None:
+            pair_counts["records"] = bounds[-1]
+        return self.image(kc.composite_plain(sf, bounds, ox, oy, **ckw,
+                                             pair_counts=pair_counts))
 
 
 def check_scan_and_expand(frame, results):
+    """Kernels 1, 2 and 3 at the flagship frame's shapes."""
     import torch
 
     from openglgaussiansplattingrenderer_tpu_torch.ops.kernels import records as kr
     from openglgaussiansplattingrenderer_tpu_torch.ops.kernels import scan as ks
 
     table, counts, kw = frame.table()
+    n, cap = counts.numel(), kw["capacity"]
     cum = ks.cumsum(counts)
     cum_p = ks.cumsum_plain(counts)
     assert torch.equal(cum, cum_p), "cumsum kernel differs from torch.cumsum"
     err = float((cum - cum_p).abs().max())
     ms, pms = cuda_ms(lambda: ks.cumsum(counts)), cuda_ms(lambda: ks.cumsum_plain(counts))
-    results["cumsum"] = dict(max_abs_err=err, ms=ms, plain_ms=pms)
-    log(f"[2] cumsum  n={counts.numel()} exact; kernel {ms:.4f} ms, "
-        f"plain {pms:.4f} ms")
+    lms = cuda_ms(lambda: torch.cumsum(counts, 0, dtype=torch.int32))
+    # each count read once, each sum written once; one add a value
+    results["cumsum"] = dict(max_abs_err=err, ms=ms, plain_ms=pms, library_ms=lms,
+                             **bound(2 * 4 * n, n))
+    log(f"[2] cumsum  n={n} exact; kernel {ms:.4f} ms, plain {pms:.4f} ms, "
+        f"torch.cumsum {lms:.4f} ms, bound {results['cumsum']['bound_ms']:.4f} ms")
 
     got = kr.expand(*table, cum, **kw)
     ref = kr.expand_plain(*table, cum, **kw)
@@ -172,33 +274,95 @@ def check_scan_and_expand(frame, results):
     err = max(float((a.double() - b.double()).abs().max()) for a, b in zip(got, ref))
     ms = cuda_ms(lambda: kr.expand(*table, cum, **kw))
     pms = cuda_ms(lambda: kr.expand_plain(*table, cum, **kw))
-    results["expand"] = dict(max_abs_err=err, ms=ms, plain_ms=pms)
-    log(f"[2] expand  C={kw['capacity']} records (total {int(cum[-1])}) "
-        f"bit-equal; kernel {ms:.4f} ms, plain {pms:.4f} ms")
+    total = min(int(cum[-1]), cap)
+    # written: 9 fields + tile + depth a record (44 B); read: 9 fields, the
+    # tile rect (4 ints), depth and the prefix sum a splat (60 B). The cull
+    # costs about 60 float operations a record below total.
+    results["expand"] = dict(max_abs_err=err, ms=ms, plain_ms=pms, library_ms=None,
+                             **bound(44 * cap + 60 * n, 60 * total))
+    log(f"[2] expand  C={cap} records (total {total}) bit-equal; kernel "
+        f"{ms:.4f} ms, plain {pms:.4f} ms, bound "
+        f"{results['expand']['bound_ms']:.4f} ms")
+
+    gen = torch.Generator(device=cum.device).manual_seed(5)
+    g = torch.randn((kr.NUM_FIELDS, cap), generator=gen, device=cum.device)
+    got = kr.segsum(g, cum)
+    ref = kr.segsum_plain(g, cum)
+    scale = ref.abs().amax(dim=1).clamp_min(1e-30)
+    rel = float(((got - ref).abs().amax(dim=1) / scale).max())
+    assert rel <= SEGSUM_ROW_TOL, f"segsum vs plain: {rel:.3e} of the row's scale"
+    empty = torch.nonzero(counts == 0).squeeze(1)
+    assert empty.numel() and not got[:, empty].any(), "segsum: empty splats not zero"
+    ms = cuda_ms(lambda: kr.segsum(g, cum))
+    pms = cuda_ms(lambda: kr.segsum_plain(g, cum))
+    ids = torch.searchsorted(cum, torch.arange(total, dtype=torch.int32,
+                                               device=cum.device), right=True)
+    lib_out = torch.zeros((kr.NUM_FIELDS, n), device=cum.device)
+    lms = cuda_ms(lambda: lib_out.zero_().index_add_(1, ids, g[:, :total]))
+    # read: 36 B a record below total and the prefix sum; written: 36 B a
+    # splat; one add a value read
+    results["segsum"] = dict(
+        max_abs_err=float((got - ref).abs().max()), max_row_rel_err=rel, ms=ms,
+        plain_ms=pms, library_ms=lms, **bound(36 * total + 40 * n, 9 * total))
+    log(f"[2] segsum  C={cap} -> n={n}: {rel:.3e} of the row's scale; kernel "
+        f"{ms:.4f} ms, plain {pms:.4f} ms, index_add_ {lms:.4f} ms, bound "
+        f"{results['segsum']['bound_ms']:.4f} ms")
 
 
 def check_composite(frame, results):
-    from openglgaussiansplattingrenderer_tpu_torch.ops import fastpath
-    from openglgaussiansplattingrenderer_tpu_torch.ops.kernels import composite as kc
-    from openglgaussiansplattingrenderer_tpu_torch.ops.kernels import records as kr
-    from openglgaussiansplattingrenderer_tpu_torch.ops.kernels import scan as ks
+    """Kernels 4 and 5 on the gate scene, each backward fed its own
+    forward's output."""
+    import torch
 
-    table, counts, ekw = frame.table()
-    rec = kr.expand(*table, ks.cumsum(counts), **ekw)
-    sf, bounds = fastpath.sort_records(*rec, frame.cfg)
+    from openglgaussiansplattingrenderer_tpu_torch.ops.kernels import composite as kc
+
+    sf, bounds = frame.sorted_records()
     ox, oy, kw = frame.composite_inputs(sf)
     got = kc.composite(sf, bounds, ox, oy, **kw)
-    ref = kc.composite_plain(sf, bounds, ox, oy, **kw)
+    pairs = {}
+    ref = kc.composite_plain(sf, bounds, ox, oy, **kw, pair_counts=pairs)
+    visited, blended = int(pairs["visited"]), int(pairs["blended"])
     err, bad = image_diff(frame.image(got), frame.image(ref))
     assert err <= GATE_MAX_ABS and bad <= GATE_MAX_PX, (
         f"compositor vs plain: max abs {err:.3e}, {bad} px > 1e-3")
     ms = cuda_ms(lambda: kc.composite(sf, bounds, ox, oy, **kw))
     pms = cuda_ms(lambda: kc.composite_plain(sf, bounds, ox, oy, **kw))
-    results["composite"] = dict(max_abs_err=err, ms=ms, plain_ms=pms)
+    nrec, npix = int(bounds[-1]), got.shape[0] * got.shape[1]
+    # read 36 B a binned record, write 16 B a pixel; operations from the
+    # (pixel, record) pairs this scene needs
+    results["composite"] = dict(
+        max_abs_err=err, ms=ms, plain_ms=pms, library_ms=None,
+        **bound(36 * nrec + 16 * npix,
+                FWD_FLOP_VISITED * visited + FWD_FLOP_BLENDED * blended))
     w, h = frame.size
     log(f"[2] composite gate scene ({GATE_SPLATS} splats, {w}x{h}, "
-        f"{int(bounds[-1])} records): max abs {err:.3e}, {bad} px > 1e-3; "
-        f"kernel {ms:.4f} ms, plain {pms:.4f} ms")
+        f"{nrec} records, {visited} pairs visited, {blended} blended): max "
+        f"abs {err:.3e}, {bad} px > 1e-3; kernel {ms:.4f} ms, plain "
+        f"{pms:.4f} ms, bound {results['composite']['bound_ms']:.4f} ms")
+
+    gen = torch.Generator(device=sf.device).manual_seed(6)
+    g = torch.randn(got.shape, generator=gen, device=sf.device)
+    d_got = kc.composite_bwd(sf, bounds, ox, oy, got, g, **kw)
+    d_ref = kc.composite_bwd_plain(sf, bounds, ox, oy, ref, g, **kw)
+    assert not d_got[:, nrec:].any(), "composite_bwd: columns past bounds[-1] not zero"
+    scale = d_ref.abs().amax(dim=1, keepdim=True).clamp_min(1e-30)
+    rel = (d_got - d_ref).abs() / scale
+    worst = float(rel.max())
+    loose = int((rel.amax(dim=0) > 1e-3).sum())
+    assert worst <= BWD_ROW_TOL, (
+        f"composite_bwd vs plain: {worst:.3e} of the row's scale, {loose} "
+        "records beyond 1e-3")
+    ms = cuda_ms(lambda: kc.composite_bwd(sf, bounds, ox, oy, got, g, **kw))
+    pms = cuda_ms(lambda: kc.composite_bwd_plain(sf, bounds, ox, oy, ref, g, **kw))
+    # read 36 B and write 36 B a binned record, read 32 B a pixel
+    results["composite_bwd"] = dict(
+        max_abs_err=float((d_got - d_ref).abs().max()), max_row_rel_err=worst,
+        ms=ms, plain_ms=pms, library_ms=None,
+        **bound(72 * nrec + 32 * npix,
+                BWD_FLOP_VISITED * visited + BWD_FLOP_BLENDED * blended))
+    log(f"[2] composite_bwd gate scene: worst row error {worst:.3e} of the "
+        f"row's scale, {loose} records beyond 1e-3; kernel {ms:.4f} ms, plain "
+        f"{pms:.4f} ms, bound {results['composite_bwd']['bound_ms']:.4f} ms")
 
 
 def stage_times(name, frame):
@@ -262,6 +426,182 @@ def check_frame(name, frame, timed=True):
     return img
 
 
+def mean_sq_loss(img):
+    """The forward + backward benchmark loss of the JAX package's bench."""
+    return (img[..., :3] ** 2).mean()
+
+
+def check_fwdbwd(name, frame, loss=mean_sq_loss):
+    """One forward + backward through render_arrays: zero overflow, every
+    gradient finite; returns (median ms, gradients)."""
+    import torch
+
+    grads, stats = frame.grads(loss)
+    torch.cuda.synchronize()
+    assert int(stats["overflow"]) == 0, f"{name}: overflow {int(stats['overflow'])}"
+    for k, g in grads.items():
+        assert g.shape == frame.params[k].shape, (k, g.shape)
+        assert bool(torch.isfinite(g).all()), f"{name}: non-finite gradient of {k}"
+    assert float(grads["colors"].abs().max()) > 0, f"{name}: zero colour gradient"
+    ms = cuda_ms(lambda: frame.grads(loss), reps=3, warmup=1)
+    log(f"[6] {name}: forward + backward {ms:.3f} ms (median of 3), records "
+        f"{int(stats['num_records'])}, max_bin {int(stats['max_bin'])}")
+    return ms, grads
+
+
+def fwdbwd_stage_times(name, frame, loss=mean_sq_loss):
+    """Median CUDA-event time of each stage of one forward + backward, the
+    backward taken stage by stage with torch.autograd.grad."""
+    import torch
+
+    from openglgaussiansplattingrenderer_tpu_torch.ops import fastpath
+    from openglgaussiansplattingrenderer_tpu_torch.ops.kernels import composite as kc
+    from openglgaussiansplattingrenderer_tpu_torch.ops.kernels import records as kr
+    from openglgaussiansplattingrenderer_tpu_torch.ops.kernels import scan as ks
+
+    names = ("table", "cumsum", "expand", "sort", "composite", "image+loss",
+             "image+loss bwd", "composite bwd", "sort bwd", "expand bwd (segsum)",
+             "table bwd")
+    times = {k: [] for k in names}
+    grad = torch.autograd.grad
+    for it in range(REPS + 1):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(len(names) + 1)]
+        p = {k: v.detach().requires_grad_(True) for k, v in frame.params.items()}
+        ev[0].record()
+        table, prep = fastpath.splat_table(p, *frame.args, frame.cfg)
+        kw = fastpath.expand_kwargs(p["means"].shape[0], *frame.size, frame.cfg)
+        ev[1].record()
+        cum = ks.cumsum(prep["counts"])
+        ev[2].record()
+        rec = kr.expand(*table, cum, **kw)
+        ev[3].record()
+        sf, bounds = fastpath.sort_records(*rec, frame.cfg)
+        ev[4].record()
+        ox, oy, ckw = frame.composite_inputs(sf)
+        tiled = kc.composite(sf, bounds, ox, oy, **ckw)
+        ev[5].record()
+        value = loss(frame.image(tiled))
+        ev[6].record()
+        (g_tiled,) = grad(value, tiled)
+        ev[7].record()
+        (g_sf,) = grad(tiled, sf, g_tiled)
+        ev[8].record()
+        (g_rec,) = grad(sf, rec[0], g_sf)
+        ev[9].record()
+        (g_fields,) = grad(rec[0], table[0], g_rec)
+        ev[10].record()
+        grad(table[0], list(p.values()), g_fields)
+        ev[11].record()
+        torch.cuda.synchronize()
+        if it >= 1:
+            for i, k in enumerate(names):
+                times[k].append(ev[i].elapsed_time(ev[i + 1]))
+    med = {k: statistics.median(v) for k, v in times.items()}
+    log(f"[6] {name} forward + backward stages (ms, median of {REPS}): "
+        + ", ".join(f"{k} {v:.4f}" for k, v in med.items())
+        + f"; sum {sum(med.values()):.4f}")
+
+
+def check_training(frame):
+    """Five Adam steps through make_train_step on the frame's scene with
+    perturbed colours, against its clean render. Returns the launch counts
+    of the steps."""
+    import numpy as np
+    import torch
+
+    from openglgaussiansplattingrenderer_tpu_torch.train import losses
+    from openglgaussiansplattingrenderer_tpu_torch.train.trainer import (
+        TrainConfig,
+        make_train_step,
+        params_from_raw,
+        raw_from_params,
+    )
+
+    w, h = frame.size
+    n = frame.params["means"].shape[0]
+    tc = TrainConfig(lambda_dssim=0.2)
+    with torch.no_grad():
+        target = frame.render()[0][..., :3].contiguous()
+    colors = frame.params["colors"].cpu().numpy()
+    noisy = np.clip(colors + np.random.default_rng(0).normal(0, 40, colors.shape),
+                    5, 250).astype(np.float32)
+    start = frame.with_cfg(frame.cfg)
+    start.params = dict(frame.params, colors=torch.as_tensor(noisy).to(target.device))
+
+    def train_loss(img):
+        return losses.gs_loss(img[..., :3], target, tc.lambda_dssim)
+
+    fb_ms, _ = check_fwdbwd("uniform train loss", start, train_loss)
+    step = make_train_step(frame.cfg, tc, w, h, with_grad_norms=True)
+    with torch.no_grad():
+        state = step.init(raw_from_params(start.params))
+
+    reset_launches()
+    loss_hist, psnr_hist, wall = [], [], []
+    for _ in range(TRAIN_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, metrics = step(state, target, *frame.args[:6])
+        torch.cuda.synchronize()
+        wall.append((time.perf_counter() - t0) * 1e3)
+        loss_hist.append(float(metrics["loss"]))
+        psnr_hist.append(float(metrics["psnr"]))
+    launches = read_launches()
+
+    gnorm = metrics["densify_grad_norm"]
+    assert gnorm.shape == (n,) and bool(torch.isfinite(gnorm).all()), gnorm.shape
+    assert float(gnorm.max()) > 0, "densify_grad_norm is all zero"
+    assert state.step == TRAIN_STEPS and state.opt_state["count"] == TRAIN_STEPS
+    for k, v in state.raw.items():
+        assert bool(torch.isfinite(v).all()), f"training: non-finite {k}"
+    assert all(np.isfinite(loss_hist)) and loss_hist[-1] < loss_hist[0], loss_hist
+    moved = float((state.raw["colors"] - start.params["colors"]).abs().max())
+    assert moved > 0, "training: colours did not move"
+    with torch.no_grad():
+        end = frame.with_cfg(frame.cfg)
+        end.params = params_from_raw(state.raw)
+        overflow = int(end.render()[1]["overflow"])
+    assert overflow == 0, f"training: overflow {overflow} after the steps"
+    for k, v in launches.items():
+        assert v > 0, f"{k} kernel never launched on the training path"
+    log(f"[5] training, {n} splats at {w}x{h}, {TRAIN_STEPS} steps of "
+        f"make_train_step (lambda_dssim {tc.lambda_dssim}, grad norms): loss "
+        + " ".join(f"{v:.6f}" for v in loss_hist)
+        + "; psnr " + " ".join(f"{v:.3f}" for v in psnr_hist)
+        + f"; step wall ms {' '.join(f'{v:.1f}' for v in wall)} (median "
+        f"{statistics.median(wall):.3f}); forward + backward {fb_ms:.3f} ms; "
+        f"largest colour move {moved:.4f}; overflow {overflow}")
+    log(f"[5] kernel launches on the training path: {launches}")
+    return launches
+
+
+def check_small_gradients(device):
+    """A 150-splat 128x128 frame's gradients on the card against the port's
+    CPU path (the plain versions)."""
+    import torch
+
+    from openglgaussiansplattingrenderer_tpu_torch import Camera, RenderConfig
+    from openglgaussiansplattingrenderer_tpu_torch.io import ply as ply_io
+
+    def loss(img):
+        return ((img[..., :3] - 0.2) ** 2).mean() + 0.1 * img[..., 3].mean()
+
+    def grads_on(dev):
+        scene = ply_io.make_synthetic_scene(150, seed=3, extent=2.0)
+        frame = Frame(scene, Camera(0.0, 0.0, -6.0, width=128, height=128),
+                      RenderConfig(chunk=64, dup_capacity_factor=24.0), dev)
+        return frame.grads(loss)[0]
+
+    g_card, g_host = grads_on(device), grads_on(torch.device("cpu"))
+    worst = {}
+    for k, g_cpu in g_host.items():
+        scale = float(g_cpu.abs().max())
+        worst[k] = float((g_card[k].cpu() - g_cpu).abs().max()) / max(scale, 1e-30)
+    log("[6] 150-splat 128x128 gradients, card vs CPU path, max abs / max |g|: "
+        + ", ".join(f"{k} {v:.3e}" for k, v in worst.items()))
+    assert max(worst.values()) <= GRAD_REL_TOL, "small frame: gradients disagree"
+
+
 def main() -> int:
     import numpy as np  # noqa: F401  (the port needs it; fail early)
     import torch
@@ -274,10 +614,9 @@ def main() -> int:
     from openglgaussiansplattingrenderer_tpu_torch import Camera, RenderConfig
     from openglgaussiansplattingrenderer_tpu_torch.io import ply as ply_io
     from openglgaussiansplattingrenderer_tpu_torch.ops.kernels import build
-    from openglgaussiansplattingrenderer_tpu_torch.ops.kernels import composite as kc
-    from openglgaussiansplattingrenderer_tpu_torch.ops.kernels import records as kr
-    from openglgaussiansplattingrenderer_tpu_torch.ops.kernels import scan as ks
     from openglgaussiansplattingrenderer_tpu_torch.render import autotune_capacity
+
+    kernels_only = sys.argv[1:] == ["--kernels-only"]
 
     dev = torch.device("cuda")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -326,24 +665,38 @@ def main() -> int:
     with torch.no_grad():
         check_scan_and_expand(frames["uniform"], results)
         check_composite(gate, results)
+        torch.cuda.synchronize()
+        if kernels_only:
+            log("[2] --kernels-only: stopping before the render path")
+            return 0
 
         # ---- 3. the render path --------------------------------------------
-        for fn in (ks.cumsum, kr.expand, kc.composite):
-            fn.launches = 0
+        reset_launches()
         img_u = check_frame("uniform pair", frames["uniform"])
         packed = dataclasses.replace(frames["uniform"].cfg, depth_key="packed")
         check_frame("uniform packed", frames["uniform"].with_cfg(packed))
         check_frame("clustered pair", frames["clustered"])
-        launches = {"cumsum": ks.cumsum.launches, "expand": kr.expand.launches,
-                    "composite": kc.composite.launches}
-        log(f"[3] kernel launches on the render path: {launches}")
-        for k, v in launches.items():
-            assert v > 0, f"{k} kernel never launched on the render path"
+        render_launches = read_launches()
+        log(f"[3] kernel launches on the render path: {render_launches}")
+        for k in ("cumsum", "expand", "composite"):
+            assert render_launches[k] > 0, (
+                f"{k} kernel never launched on the render path")
 
-        plain = frames["uniform"].plain_render()
+        pairs = {}
+        plain = frames["uniform"].plain_render(pairs)
         err, bad = image_diff(img_u, plain)
         log(f"[3] uniform frame vs all-plain pipeline: max abs {err:.3e}, "
             f"{bad} px > 1e-3")
+        visited, blended = int(pairs["visited"]), int(pairs["blended"])
+        fwd_ops = FWD_FLOP_VISITED * visited + FWD_FLOP_BLENDED * blended
+        bwd_ops = BWD_FLOP_VISITED * visited + BWD_FLOP_BLENDED * blended
+        nrec, npix = int(pairs["records"]), FLAG_W * FLAG_H
+        b_fwd = bound(36 * nrec + 16 * npix, fwd_ops)
+        b_bwd = bound(72 * nrec + 32 * npix, bwd_ops)
+        log(f"[3] uniform frame compositor work: {nrec} records, {visited} "
+            f"pairs visited, {blended} blended; bound forward "
+            f"{b_fwd['bound_ms']:.4f} ms ({b_fwd['bound_by']}), backward "
+            f"{b_bwd['bound_ms']:.4f} ms ({b_bwd['bound_by']})")
         assert err <= GATE_MAX_ABS and bad <= GATE_MAX_PX, (
             "uniform frame diverges from the all-plain pipeline")
 
@@ -362,11 +715,34 @@ def main() -> int:
         log(f"[3] 150-splat 128x128 frame, card vs CPU path: max abs {err_s:.3e}")
         assert err_s <= 1e-4, "small frame: card and CPU path disagree"
 
-    # ---- 4. results ---------------------------------------------------------
+    # ---- 5. the training path -------------------------------------------
+    launches = check_training(frames["uniform"])
+
+    # ---- 6. forward + backward of the other scenes ------------------------
+    check_fwdbwd("uniform pair", frames["uniform"])
+    fwdbwd_stage_times("uniform pair", frames["uniform"])
+    check_fwdbwd("clustered pair", frames["clustered"])
+    fwdbwd_stage_times("clustered pair", frames["clustered"])
+    del frames, scenes
+    mcfg0 = RenderConfig.for_resolution(MSPLATS_W, MSPLATS_H, tile_px=32,
+                                        chunk=MSPLATS_CHUNK)
+    msplats = Frame(
+        ply_io.make_synthetic_scene(MSPLATS, seed=42, extent=3.0,
+                                    log_scale_range=(-5.5, -3.2)),
+        Camera(0.0, 0.0, -8.0, width=MSPLATS_W, height=MSPLATS_H), mcfg0, dev)
+    msplats.cfg = autotune_capacity(msplats.params, *msplats.args[:6], MSPLATS_W,
+                                    MSPLATS_H, mcfg0)
+    check_fwdbwd(f"{MSPLATS} splats {MSPLATS_W}x{MSPLATS_H}", msplats)
+    check_small_gradients(dev)
+
+    # ---- 7. results ---------------------------------------------------------
+    # "launches" counts the training path's five steps; the render path's
+    # three frames (and their timing repetitions) are counted beside it
     rows = []
     for name, (src, replaces) in KERNELS.items():
         rows.append({"name": name, "route": "cuda", "source": src,
                      "replaces": replaces, "launches": launches[name],
+                     "render_path_launches": render_launches[name],
                      **results[name]})
     log(json.dumps({"kernels": rows}))
     log(json.dumps({"ok": True, "device": {

@@ -1,11 +1,12 @@
 """Differentiable 3D Gaussian Splatting renderer: the PyTorch/CUDA port.
 
 The counterpart of ``openglgaussiansplattingrenderer_tpu`` (JAX/Pallas),
-which stays the reference. Plain tensor code is PyTorch; the frame's
-kernels (prefix sum, record expansion, tile compositor) are CUDA C++ for
-Hopper in ``csrc/``, built with nvcc at first use. On CPU tensors every
-kernel wrapper runs its plain PyTorch version instead. This package never
-imports JAX.
+which stays the reference. Plain tensor code is PyTorch; the kernels of
+the frame and of its gradient (prefix sum, record expansion and its
+segment-sum transpose, tile compositor forward and backward) are CUDA C++
+for Hopper in ``csrc/``, built with nvcc at first use. On CPU tensors every
+kernel wrapper runs its plain PyTorch version instead. ``train`` fits splat
+parameters with Adam on those gradients. This package never imports JAX.
 """
 
 from openglgaussiansplattingrenderer_tpu_torch.config import RenderConfig
@@ -16,6 +17,12 @@ from openglgaussiansplattingrenderer_tpu_torch.render import (
     render,
     render_arrays,
     render_stats,
+)
+from openglgaussiansplattingrenderer_tpu_torch.train import (
+    TrainConfig,
+    TrainState,
+    fit_scene,
+    make_train_step,
 )
 
 __version__ = "0.1.0"
@@ -29,5 +36,9 @@ __all__ = [
     "render",
     "render_arrays",
     "render_stats",
+    "TrainConfig",
+    "TrainState",
+    "fit_scene",
+    "make_train_step",
     "__version__",
 ]

@@ -17,14 +17,15 @@
 //           whose preceding transmittance is <= 1 - saturation (draw.glsl's
 //           break). The block leaves its record loop once no pixel of the
 //           tile is alive (__syncthreads_or after each batch). Built with
-//           --fmad=false: the power is rounded as in the plain version.
+//           --fmad=false: the power is rounded as in the plain version. The
+//           (pixel, record) step is composite_common.cuh's, shared with the
+//           backward kernel, which must repeat it exactly.
 
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "composite_common.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;
+using gs::kThreads;
 constexpr int kFields = 9;
 
 template <int PPT>
@@ -67,19 +68,14 @@ composite_fwd(const float* __restrict__ rec, int rec_stride,   // (9, rec_stride
     __syncthreads();  // the previous batch has been consumed
     for (int k = threadIdx.x; k < m; k += kThreads) {
       const int idx = base + k;
-      const float mxl = rec[idx] - oxf;
-      const float myl = rec[rec_stride + idx] - oyf;
-      const float ca = rec[2 * rec_stride + idx];
-      const float cbn = rec[3 * rec_stride + idx];
-      const float cc = rec[4 * rec_stride + idx];
-      const float s11 = sqrtf(fmaxf(ca * 0.5f, 0.0f));
-      const float s12 = (cbn * 0.5f) / fmaxf(s11, 1e-20f);
-      const float s22 = sqrtf(fmaxf(cc * 0.5f - s12 * s12, 0.0f));
-      s_s11[k] = s11;
-      s_s12[k] = s12;
-      s_s22[k] = s22;
-      s_u0[k] = -(s11 * mxl + s12 * myl);
-      s_v0[k] = -(s22 * myl);
+      const gs::RecordFactors f = gs::record_factors(
+          rec[idx], rec[rec_stride + idx], rec[2 * rec_stride + idx],
+          rec[3 * rec_stride + idx], rec[4 * rec_stride + idx], oxf, oyf);
+      s_s11[k] = f.s11;
+      s_s12[k] = f.s12;
+      s_s22[k] = f.s22;
+      s_u0[k] = f.u0;
+      s_v0[k] = f.v0;
       s_op[k] = rec[5 * rec_stride + idx];
       s_r[k] = rec[6 * rec_stride + idx];
       s_g[k] = rec[7 * rec_stride + idx];
@@ -92,10 +88,8 @@ composite_fwd(const float* __restrict__ rec, int rec_stride,   // (9, rec_stride
 #pragma unroll
       for (int i = 0; i < PPT; ++i) {
         if (T[i] > thresh) {
-          const float u = s11 * fx[i] + (s12 * fy[i] + u0);
-          const float v = s22 * fy[i] + v0;
-          const float power = -(u * u + v * v);
-          const float alpha = fminf(alpha_max, expf(power) * op);
+          const float alpha = fminf(
+              alpha_max, gs::alpha_unclamped(s11, s12, s22, u0, v0, op, fx[i], fy[i]));
           if (alpha >= alpha_min) {
             const float w = alpha * T[i];
             cr[i] += w * s_r[k];
@@ -133,7 +127,7 @@ void launch(const float* rec, int rec_stride, const int32_t* bounds, const int32
 
 }  // namespace
 
-extern "C" int gs_composite_max_pixels() { return 8 * kThreads; }
+extern "C" int gs_composite_max_pixels() { return gs::kMaxPixels; }
 
 // rec: (9, rec_stride) f32 sorted record fields; bounds (T+1,) int32;
 // ox, oy (T,) int32 tile pixel origins; out (T, p, 4) f32. chunk <= 1024
@@ -143,7 +137,7 @@ extern "C" int gs_composite_fwd(const float* rec, int rec_stride, const int32_t*
                                 int num_tiles, int pw, int p, int chunk, float alpha_min,
                                 float alpha_max, float thresh, void* stream) {
   if (num_tiles <= 0) return 0;
-  if (p <= 0 || p > 8 * kThreads || chunk <= 0 || chunk > 1024)
+  if (p <= 0 || p > gs::kMaxPixels || chunk <= 0 || chunk > gs::kMaxChunk)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int ppt = (p + kThreads - 1) / kThreads;

@@ -1,16 +1,19 @@
-"""The forward render path: preprocess -> records -> sort -> compositor.
+"""The render path: preprocess -> records -> sort -> compositor.
 
-Counterpart of ``openglgaussiansplattingrenderer_tpu/ops/fastpath.py``
-(forward only). Stage map, kernels in ``ops/kernels``:
+Counterpart of ``openglgaussiansplattingrenderer_tpu/ops/fastpath.py``.
+Stage map, kernels in ``ops/kernels`` (forward / backward):
 
-  preprocess (torch elementwise)                          [N]
-    -> prefix sum of duplicate counts    (kernel: scan)   [N]
-    -> expand to splat-major records     (kernel: expand) [C]
-    -> stable (tile, depth) record sort  (torch.sort)     [C]
-    -> per-tile bounds                   (searchsorted)   [T+1]
-    -> tile compositor                   (kernel: composite)
+  preprocess (torch elementwise / autograd)               [N]
+    -> prefix sum of duplicate counts    (kernel: scan / integers, none)
+    -> expand to splat-major records     (kernel: expand / segsum) [C]
+    -> stable (tile, depth) record sort  (torch.sort / one scatter) [C]
+    -> per-tile bounds                   (searchsorted / integers, none)
+    -> tile compositor                   (kernel: composite / composite_bwd)
     -> assemble_image
 
+The frame is differentiable with respect to every float parameter: each
+kernel with a gradient sits in a ``torch.autograd.Function`` whose backward
+is a kernel too. Sort keys (tile, depth) and all statistics are detached.
 Records carry their own depth, so there is no per-splat depth sort
 (``hoist_depth_sort=False``); overflow past ``capacity`` drops records in
 splat order, and ``stats["overflow"]`` reports it.

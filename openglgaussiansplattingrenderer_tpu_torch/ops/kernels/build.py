@@ -1,11 +1,13 @@
 """Build and load the port's CUDA kernels.
 
-All ``csrc/*.cu`` sources compile with ``nvcc`` into one shared library with
-a plain C interface, loaded through ``ctypes`` (no PyTorch headers, so the
-build takes seconds). The library lands in ``csrc/build/`` (git-ignored),
-named by a hash of the sources and flags, and is built at first use: the
-first CUDA launch of any wrapper builds it. A missing ``nvcc`` or a failed
-build raises with the compiler's output; nothing falls back.
+All ``csrc/*.cu`` sources compile with ``nvcc`` (one compiler process per
+source, all started together) and link into one shared library with a plain
+C interface, loaded through ``ctypes`` (no PyTorch headers, so the build
+takes seconds). The library lands in ``csrc/build/`` (git-ignored), named
+by a hash of the sources, the shared headers (``*.cuh``) and the flags, and
+is built at first use: the first CUDA launch of any wrapper builds it. A
+missing ``nvcc`` or a failed build raises with the compiler's output;
+nothing falls back.
 
 Every C entry point returns ``cudaGetLastError()`` after its launches;
 ``check`` turns a nonzero code into an exception.
@@ -28,7 +30,7 @@ BUILD_DIR = CSRC / "build"
 ARCH = "-gencode=arch=compute_90a,code=sm_90a"
 # --fmad=false: no multiply-add contraction, so each kernel rounds its
 # float expressions exactly as the plain PyTorch versions do.
-NVCC_FLAGS = [ARCH, "-std=c++17", "-O3", "--fmad=false", "-shared",
+NVCC_FLAGS = [ARCH, "-std=c++17", "-O3", "--fmad=false",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
@@ -38,6 +40,9 @@ SIGNATURES = {
     "gs_expand": [_P, _P, _P, _P, _P, _I, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P],
     "gs_composite_max_pixels": [],
     "gs_composite_fwd": [_P, _I, _P, _P, _P, _P, _I, _I, _I, _I, _F, _F, _F, _P],
+    "gs_composite_bwd": [_P, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _F,
+                         _F, _P],
+    "gs_segsum": [_P, _I, _P, _I, _P, _P],
 }
 
 # filled by the build: seconds the nvcc run took (0.0 when the library was
@@ -45,7 +50,7 @@ SIGNATURES = {
 build_info = {"seconds": None, "ptxas": "", "path": None}
 
 
-class KernelBuildError(RuntimeError):
+class KernelCompileError(RuntimeError):
     """nvcc is missing or the CUDA sources did not compile."""
 
 
@@ -67,12 +72,47 @@ def sources():
     return sorted(CSRC.glob("*.cu"))
 
 
+def headers():
+    """Headers shared between sources; an edit to one rebuilds the library."""
+    return sorted(CSRC.glob("*.cuh"))
+
+
 def _digest() -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in sources():
+    for src in sources() + headers():
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return h.hexdigest()[:16]
+
+
+def _run_together(cmds) -> str:
+    """Start every command at once, wait for all, raise on the first that
+    failed; returns their combined output."""
+    procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for cmd in cmds]
+    outs = [p.communicate()[0] for p in procs]
+    for cmd, proc, out in zip(cmds, procs, outs):
+        if proc.returncode != 0:
+            raise KernelCompileError(
+                f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{out}")
+    return "".join(outs)
+
+
+def _compile(nvcc: str, lib_path: Path) -> None:
+    """One ``nvcc -c`` per source, all running at once, then one link."""
+    stem = f"{lib_path.stem}.{os.getpid()}"
+    objs = [BUILD_DIR / f"{stem}.{src.stem}.o" for src in sources()]
+    tmp = BUILD_DIR / f"{stem}.tmp"
+    try:
+        build_info["ptxas"] = _run_together(
+            [[nvcc, *NVCC_FLAGS, "-c", str(src), "-o", str(obj)]
+             for src, obj in zip(sources(), objs)])
+        _run_together([[nvcc, ARCH, "-shared", "-o", str(tmp), *map(str, objs)]])
+        os.replace(tmp, lib_path)
+    finally:
+        for f in (*objs, tmp):
+            f.unlink(missing_ok=True)
 
 
 @functools.lru_cache(maxsize=1)
@@ -82,22 +122,13 @@ def load_library() -> ctypes.CDLL:
     if not lib_path.exists():
         nvcc = find_nvcc()
         if nvcc is None:
-            raise KernelBuildError(
+            raise KernelCompileError(
                 "nvcc not found (PATH or the CUDA toolkit PyTorch reports): "
                 "the CUDA kernels cannot be built")
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = lib_path.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), *map(str, sources())]
         t0 = time.perf_counter()
-        proc = subprocess.run(cmd, capture_output=True, text=True)
+        _compile(nvcc, lib_path)
         build_info["seconds"] = time.perf_counter() - t0
-        build_info["ptxas"] = proc.stdout + proc.stderr
-        if proc.returncode != 0:
-            tmp.unlink(missing_ok=True)
-            raise KernelBuildError(
-                f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n"
-                f"{proc.stdout}{proc.stderr}")
-        os.replace(tmp, lib_path)
         (BUILD_DIR / f"{lib_path.stem}.ptxas.txt").write_text(build_info["ptxas"])
     else:
         build_info["seconds"] = 0.0
@@ -116,12 +147,14 @@ def check(name: str, code: int) -> None:
         raise RuntimeError(f"CUDA kernel {name} failed: cudaError {code}")
 
 
-def on_cuda(name: str, *tensors) -> bool:
+def on_cuda(name: str, *tensors, has_backward: bool = False) -> bool:
     """Which implementation a wrapper runs: False (the plain PyTorch
     version) when every input lies on the CPU, True (the CUDA kernel) when
-    every input lies on one CUDA device. Anything else raises, and so does
-    a CUDA call that autograd would need to differentiate: the kernels have
-    no backward yet (ROADMAP.md, kernels to port: 3 and 5)."""
+    every input lies on one CUDA device. Anything else raises. A wrapper
+    whose kernel sits inside a ``torch.autograd.Function`` passes
+    ``has_backward=True``; for the others (the integer prefix sum, and the
+    backward kernels themselves, which have no second derivative) a CUDA
+    call that autograd would need to differentiate raises."""
     devices = {t.device for t in tensors}
     if all(d.type == "cpu" for d in devices):
         return False
@@ -130,9 +163,10 @@ def on_cuda(name: str, *tensors) -> bool:
                          f"one CUDA device, got {sorted(map(str, devices))}")
     import torch
 
-    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+    if (not has_backward and torch.is_grad_enabled()
+            and any(t.requires_grad for t in tensors)):
         raise NotImplementedError(
-            f"{name}: the CUDA kernel has no backward yet; call it under "
+            f"{name}: this CUDA kernel has no backward; call it under "
             "torch.no_grad() or on tensors that do not require grad")
     return True
 

@@ -1,10 +1,13 @@
-"""Record expansion and the record sort.
+"""Record expansion, its transpose, and the record sort.
 
-Counterpart of ``openglgaussiansplattingrenderer_tpu/ops/pallas/records.py``
-for the forward frame: the duplicate expansion (kernel ``csrc/expand.cu``)
-and the stable payload sort, which is ``torch.sort(stable=True)`` on the key
-plus one gather of the fields -- the JAX package's ``SORT_MODE="gather"``
-form, proven bit-identical to its payload sort.
+Counterpart of ``openglgaussiansplattingrenderer_tpu/ops/pallas/records.py``:
+the duplicate expansion (kernel ``csrc/expand.cu``), whose gradient is the
+per-splat segment sum of the record cotangents (kernel ``csrc/segsum.cu``),
+joined by ``Expand``, a ``torch.autograd.Function``; and the stable payload
+sort, which is ``torch.sort(stable=True)`` on the key plus one gather of
+the fields -- the JAX package's ``SORT_MODE="gather"`` form, proven
+bit-identical to its payload sort. Its gradient scatters the cotangents
+back by the recorded source index.
 
 Records are kept as a (9, C) float32 field array (mx, my, A, B, C, op, r,
 g, b), an int32 tile id per record (``num_tiles`` marks an invalid record)
@@ -75,20 +78,10 @@ def expand_plain(fields, tile_min, tile_ext, depth, cum_incl, *, capacity,
             torch.where(valid, depth[s], zero))
 
 
-def expand(fields: torch.Tensor, tile_min: torch.Tensor, tile_ext: torch.Tensor,
-           depth: torch.Tensor, cum_incl: torch.Tensor, *, capacity: int, gx: int,
-           num_tiles: int, pw: int, ph: int, alpha_min: float
-           ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Splat-major records from the per-splat table.
-
-    Record r belongs to splat s with cum_excl[s] <= r < cum_incl[s]; it
-    carries that splat's 9 ``fields`` (9, N), its tile (tile_min (N, 2),
-    tile_ext (N, 2), row-major over the splat's tile rect) and its
-    ``depth`` (N,). Records at or past total = min(cum_incl[-1], capacity)
-    are zero with tile ``num_tiles``, and so is the tile of a record whose
-    Gaussian cannot reach ``alpha_min`` anywhere in its pw x ph tile.
-    Returns (fields (9, C) f32, tile (C,) int32, depth (C,) f32).
-    """
+def expand_fwd(fields, tile_min, tile_ext, depth, cum_incl, *, capacity, gx,
+               num_tiles, pw, ph, alpha_min):
+    """The expansion alone (no autograd graph): the CUDA kernel for CUDA
+    tensors, ``expand_plain`` for CPU tensors."""
     n = fields.shape[1]
     build.expect("expand fields", fields, torch.float32, (NUM_FIELDS, n))
     build.expect("expand tile_min", tile_min, torch.int32, (n, 2))
@@ -115,14 +108,111 @@ def expand(fields: torch.Tensor, tile_min: torch.Tensor, tile_ext: torch.Tensor,
     return out_f, out_t, out_d
 
 
+def segsum_plain(g: torch.Tensor, cum_incl: torch.Tensor) -> torch.Tensor:
+    """The plain PyTorch version of ``segsum``: each record's splat by
+    ``searchsorted`` and one ``index_add_`` over the records below total."""
+    n, c = cum_incl.shape[0], g.shape[1]
+    out = torch.zeros((g.shape[0], n), dtype=g.dtype, device=g.device)
+    if n == 0 or c == 0:
+        return out
+    r = torch.arange(c, dtype=torch.int32, device=g.device)
+    valid = torch.nonzero(r < torch.clamp_max(cum_incl[-1], c)).squeeze(1)
+    s = torch.searchsorted(cum_incl, r[valid], right=True)
+    return out.index_add_(1, s, g[:, valid])
+
+
+def segsum(g: torch.Tensor, cum_incl: torch.Tensor) -> torch.Tensor:
+    """Transpose of the expansion: ``out[:, s]`` is the sum of the record
+    cotangents ``g`` (9, C) over splat s's span [cum_excl[s], min(cum_incl[s],
+    total)), total = min(cum_incl[-1], C); zero for a splat with no
+    records. Spans are contiguous, so each sum has a fixed order and the
+    result is the same from run to run. Returns (9, N) float32."""
+    n = cum_incl.shape[0]
+    build.expect("segsum g", g, torch.float32, (NUM_FIELDS, None))
+    build.expect("segsum cum_incl", cum_incl, torch.int32, (n,))
+    if not build.on_cuda("segsum", g, cum_incl):
+        return segsum_plain(g, cum_incl)
+    out = torch.empty((NUM_FIELDS, n), dtype=torch.float32, device=g.device)
+    if n == 0:
+        return out
+    lib = build.load_library()
+    build.check("segsum", lib.gs_segsum(
+        g.data_ptr(), g.shape[1], cum_incl.data_ptr(), n, out.data_ptr(),
+        build.stream_ptr()))
+    segsum.launches += 1
+    return out
+
+
+class Expand(torch.autograd.Function):
+    """``expand_fwd`` with ``segsum`` as its gradient with respect to the
+    splat fields. The tile ids and depths of the records, and the integer
+    inputs, carry no gradient (sort keys are not differentiated)."""
+
+    @staticmethod
+    def forward(ctx, fields, tile_min, tile_ext, depth, cum_incl, capacity,
+                gx, num_tiles, pw, ph, alpha_min):
+        out_f, out_t, out_d = expand_fwd(
+            fields, tile_min, tile_ext, depth, cum_incl, capacity=capacity,
+            gx=gx, num_tiles=num_tiles, pw=pw, ph=ph, alpha_min=alpha_min)
+        ctx.save_for_backward(cum_incl)
+        ctx.mark_non_differentiable(out_t, out_d)
+        return out_f, out_t, out_d
+
+    @staticmethod
+    def backward(ctx, g_fields, _g_tile, _g_depth):
+        (cum_incl,) = ctx.saved_tensors
+        return (segsum(g_fields.contiguous(), cum_incl),) + (None,) * 10
+
+
+def expand(fields: torch.Tensor, tile_min: torch.Tensor, tile_ext: torch.Tensor,
+           depth: torch.Tensor, cum_incl: torch.Tensor, *, capacity: int, gx: int,
+           num_tiles: int, pw: int, ph: int, alpha_min: float
+           ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Splat-major records from the per-splat table.
+
+    Record r belongs to splat s with cum_excl[s] <= r < cum_incl[s]; it
+    carries that splat's 9 ``fields`` (9, N), its tile (tile_min (N, 2),
+    tile_ext (N, 2), row-major over the splat's tile rect) and its
+    ``depth`` (N,). Records at or past total = min(cum_incl[-1], capacity)
+    are zero with tile ``num_tiles``, and so is the tile of a record whose
+    Gaussian cannot reach ``alpha_min`` anywhere in its pw x ph tile.
+    Returns (fields (9, C) f32, tile (C,) int32, depth (C,) f32); the
+    fields are differentiable with respect to ``fields``.
+    ``expand.launches`` counts launches of the expansion kernel,
+    ``segsum.launches`` those of its transpose.
+    """
+    return Expand.apply(fields, tile_min, tile_ext, depth, cum_incl, capacity,
+                        gx, num_tiles, pw, ph, alpha_min)
+
+
 expand.launches = 0
+segsum.launches = 0
+
+
+class SortWithPayload(torch.autograd.Function):
+    """Stable sort of the key with the fields gathered along; the backward
+    puts the field cotangents back in source order. ``si`` is a full
+    permutation, so that is one scatter without collisions (the same
+    result from run to run); the key gets no gradient."""
+
+    @staticmethod
+    def forward(ctx, key, fields):
+        sk, si = torch.sort(key, stable=True)
+        ctx.save_for_backward(si)
+        ctx.mark_non_differentiable(sk, si)
+        return sk, si, fields.index_select(1, si)
+
+    @staticmethod
+    def backward(ctx, _g_key, _g_idx, g_fields):
+        (si,) = ctx.saved_tensors
+        return None, torch.empty_like(g_fields).index_copy_(1, si, g_fields)
 
 
 def sort_with_payload(key: torch.Tensor, fields: torch.Tensor):
     """Stable sort by ``key``; returns (sorted_key, source_idx,
-    sorted_fields) with ``fields`` (F, C) gathered along the record axis."""
-    sk, si = torch.sort(key, stable=True)
-    return sk, si, fields.index_select(1, si)
+    sorted_fields) with ``fields`` (F, C) gathered along the record axis,
+    differentiable with respect to ``fields``."""
+    return SortWithPayload.apply(key, fields)
 
 
 def pair_key(tile: torch.Tensor, depth: torch.Tensor) -> torch.Tensor:

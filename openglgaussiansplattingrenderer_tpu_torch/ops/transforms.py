@@ -27,6 +27,14 @@ SH_C3 = (-0.5900435899266435, 2.890611442640554, -0.4570457994644658,
          -0.5900435899266435)
 
 
+def sigmoid(x: torch.Tensor) -> torch.Tensor:
+    return 1.0 / (1.0 + torch.exp(-x))
+
+
+def inverse_sigmoid(y: torch.Tensor) -> torch.Tensor:
+    return torch.log(y) - torch.log1p(-y)
+
+
 def color_to_dc(c, color_scale: float = 255.0):
     return (c / color_scale - 0.5) / SH_C0
 
