@@ -14,15 +14,18 @@ csrc`` (nvcc, at first use), then:
    prefix sum and expansion on the flagship frame, bit-equal; segment sum
    on the flagship frame's shapes with a seeded cotangent; compositor
    forward (image max abs diff <= 5e-3 with <= 10 px above 1e-3) and
-   backward (per row within 5e-3 of the row's largest gradient) on the
-   10k-splat gate scene, each backward fed its own forward's output;
+   backward (per row within a stated share of the row's largest gradient,
+   columns past the last tile zero) on the uniform flagship frame's sorted
+   records and on the 10k-splat gate scene, with a seeded cotangent and
+   each backward fed its own forward's output;
 3. drives the render path through ``render_arrays`` at the reference's
    operating point (3,616,103 splats at 1024x512, uniform and clustered
    scenes), with every kernel launch counter reset just before and read
    just after; checks zero overflow, a finite image with coverage, every
    forward kernel launched, the uniform frame against the all-plain
    pipeline, and a small frame against the port's CPU path;
-4. prints each flagship frame's per-stage device times (CUDA events);
+4. prints each flagship scene's per-stage device times of one forward +
+   backward (CUDA events);
 5. drives the training path: five Adam steps of ``make_train_step`` (L1 +
    D-SSIM, per-splat densification statistic) on the uniform flagship scene
    with perturbed colours against its clean render, counters reset just
@@ -36,9 +39,6 @@ csrc`` (nvcc, at first use), then:
 
 Every check raises on failure; the exit code is nonzero and no result line
 is printed. There is no fallback: without CUDA the script exits 1.
-
-``python3 chip_smoke.py --kernels-only`` stops after phase 2 (a short run
-that builds and checks new kernels); it prints no result line.
 """
 
 from __future__ import annotations
@@ -59,8 +59,10 @@ GATE_MAX_ABS, GATE_MAX_PX = 5e-3, 10
 # Compositor backward against its plain version, of the row's largest plain
 # gradient. Sequential and scanned transmittance round differently, so a
 # record at the saturation edge could flip and move a row by up to ~5e-3;
-# on the gate scene none does (measured 1.4e-6, no record beyond 1e-3), so
-# the limit is held two orders above what the run shows, not at 5e-3.
+# none does on the uniform flagship frame's records (up to 48,947 a tile,
+# 192 batches of ``chunk``: measured 4.6e-6, no record beyond 1e-3) nor on
+# the gate scene (1.4e-6), so the limit is held more than an order above
+# what the runs show, not at 5e-3.
 BWD_ROW_TOL = 1e-4
 SEGSUM_ROW_TOL = 1e-5              # of the row's largest plain sum
 GRAD_REL_TOL = 5e-3                # card vs CPU path, per parameter tensor
@@ -228,9 +230,8 @@ class Frame:
 
         return assemble_image(tiled[:, :, :3], tiled[:, :, 3], *self.size, self.cfg)
 
-    def plain_render(self, pair_counts=None):
-        """The whole frame through the plain versions of every kernel;
-        ``pair_counts`` receives the compositor's (pixel, record) work."""
+    def plain_render(self):
+        """The whole frame through the plain versions of every kernel."""
         from openglgaussiansplattingrenderer_tpu_torch.ops import fastpath
         from openglgaussiansplattingrenderer_tpu_torch.ops.kernels import composite as kc
         from openglgaussiansplattingrenderer_tpu_torch.ops.kernels import records as kr
@@ -240,10 +241,7 @@ class Frame:
         rec = kr.expand_plain(*table, ks.cumsum_plain(counts), **ekw)
         sf, bounds = fastpath.sort_records(*rec, self.cfg)
         ox, oy, ckw = self.composite_inputs(sf)
-        if pair_counts is not None:
-            pair_counts["records"] = bounds[-1]
-        return self.image(kc.composite_plain(sf, bounds, ox, oy, **ckw,
-                                             pair_counts=pair_counts))
+        return self.image(kc.composite_plain(sf, bounds, ox, oy, **ckw))
 
 
 def check_scan_and_expand(frame, results):
@@ -309,9 +307,10 @@ def check_scan_and_expand(frame, results):
         f"{results['segsum']['bound_ms']:.4f} ms")
 
 
-def check_composite(frame, results):
-    """Kernels 4 and 5 on the gate scene, each backward fed its own
-    forward's output."""
+def check_composite(name, frame):
+    """Kernels 4 and 5 on the frame's own sorted records, with a seeded
+    cotangent and each backward fed its own forward's output. Returns the
+    two kernels' result rows."""
     import torch
 
     from openglgaussiansplattingrenderer_tpu_torch.ops.kernels import composite as kc
@@ -324,86 +323,54 @@ def check_composite(frame, results):
     visited, blended = int(pairs["visited"]), int(pairs["blended"])
     err, bad = image_diff(frame.image(got), frame.image(ref))
     assert err <= GATE_MAX_ABS and bad <= GATE_MAX_PX, (
-        f"compositor vs plain: max abs {err:.3e}, {bad} px > 1e-3")
+        f"{name}: compositor vs plain: max abs {err:.3e}, {bad} px > 1e-3")
     ms = cuda_ms(lambda: kc.composite(sf, bounds, ox, oy, **kw))
     pms = cuda_ms(lambda: kc.composite_plain(sf, bounds, ox, oy, **kw))
     nrec, npix = int(bounds[-1]), got.shape[0] * got.shape[1]
+    work = dict(records=nrec,
+                max_records_per_tile=int((bounds[1:] - bounds[:-1]).max()),
+                pairs_visited=visited, pairs_blended=blended)
     # read 36 B a binned record, write 16 B a pixel; operations from the
-    # (pixel, record) pairs this scene needs
-    results["composite"] = dict(
-        max_abs_err=err, ms=ms, plain_ms=pms, library_ms=None,
-        **bound(36 * nrec + 16 * npix,
-                FWD_FLOP_VISITED * visited + FWD_FLOP_BLENDED * blended))
+    # (pixel, record) pairs these records need
+    fwd = dict(max_abs_err=err, ms=ms, plain_ms=pms, library_ms=None,
+               **bound(36 * nrec + 16 * npix,
+                       FWD_FLOP_VISITED * visited + FWD_FLOP_BLENDED * blended),
+               **work)
     w, h = frame.size
-    log(f"[2] composite gate scene ({GATE_SPLATS} splats, {w}x{h}, "
-        f"{nrec} records, {visited} pairs visited, {blended} blended): max "
-        f"abs {err:.3e}, {bad} px > 1e-3; kernel {ms:.4f} ms, plain "
-        f"{pms:.4f} ms, bound {results['composite']['bound_ms']:.4f} ms")
+    log(f"[2] composite {name} ({w}x{h}, {nrec} records, at most "
+        f"{work['max_records_per_tile']} a tile, {visited} pairs visited, "
+        f"{blended} blended): max abs {err:.3e}, {bad} px > 1e-3; kernel "
+        f"{ms:.4f} ms, plain {pms:.4f} ms, bound {fwd['bound_ms']:.4f} ms "
+        f"({fwd['bound_by']})")
 
     gen = torch.Generator(device=sf.device).manual_seed(6)
     g = torch.randn(got.shape, generator=gen, device=sf.device)
     d_got = kc.composite_bwd(sf, bounds, ox, oy, got, g, **kw)
     d_ref = kc.composite_bwd_plain(sf, bounds, ox, oy, ref, g, **kw)
-    assert not d_got[:, nrec:].any(), "composite_bwd: columns past bounds[-1] not zero"
-    scale = d_ref.abs().amax(dim=1, keepdim=True).clamp_min(1e-30)
-    rel = (d_got - d_ref).abs() / scale
-    worst = float(rel.max())
-    loose = int((rel.amax(dim=0) > 1e-3).sum())
+    assert bool(torch.isfinite(d_got).all()), f"{name}: composite_bwd not finite"
+    assert not d_got[:, nrec:].any(), (
+        f"{name}: composite_bwd: columns past bounds[-1] not zero")
+    diff = (d_got - d_ref).abs()
+    max_abs = float(diff.max())
+    diff /= d_ref.abs().amax(dim=1, keepdim=True).clamp_min(1e-30)
+    worst = float(diff.max())
+    loose = int((diff.amax(dim=0) > 1e-3).sum())
+    del diff
     assert worst <= BWD_ROW_TOL, (
-        f"composite_bwd vs plain: {worst:.3e} of the row's scale, {loose} "
-        "records beyond 1e-3")
+        f"{name}: composite_bwd vs plain: {worst:.3e} of the row's scale, "
+        f"{loose} records beyond 1e-3")
     ms = cuda_ms(lambda: kc.composite_bwd(sf, bounds, ox, oy, got, g, **kw))
     pms = cuda_ms(lambda: kc.composite_bwd_plain(sf, bounds, ox, oy, ref, g, **kw))
     # read 36 B and write 36 B a binned record, read 32 B a pixel
-    results["composite_bwd"] = dict(
-        max_abs_err=float((d_got - d_ref).abs().max()), max_row_rel_err=worst,
-        ms=ms, plain_ms=pms, library_ms=None,
-        **bound(72 * nrec + 32 * npix,
-                BWD_FLOP_VISITED * visited + BWD_FLOP_BLENDED * blended))
-    log(f"[2] composite_bwd gate scene: worst row error {worst:.3e} of the "
-        f"row's scale, {loose} records beyond 1e-3; kernel {ms:.4f} ms, plain "
-        f"{pms:.4f} ms, bound {results['composite_bwd']['bound_ms']:.4f} ms")
-
-
-def stage_times(name, frame):
-    """Median CUDA-event time of each stage of the frame (after warm-up),
-    and the per-tile record counts that bound the compositor."""
-    import torch
-
-    from openglgaussiansplattingrenderer_tpu_torch.ops import fastpath
-    from openglgaussiansplattingrenderer_tpu_torch.ops.kernels import composite as kc
-    from openglgaussiansplattingrenderer_tpu_torch.ops.kernels import records as kr
-    from openglgaussiansplattingrenderer_tpu_torch.ops.kernels import scan as ks
-
-    names = ("table", "cumsum", "expand", "sort", "composite", "assemble")
-    times = {k: [] for k in names}
-    for it in range(REPS + 2):
-        ev = [torch.cuda.Event(enable_timing=True) for _ in range(len(names) + 1)]
-        ev[0].record()
-        table, counts, kw = frame.table()
-        ev[1].record()
-        cum = ks.cumsum(counts)
-        ev[2].record()
-        rec = kr.expand(*table, cum, **kw)
-        ev[3].record()
-        sf, bounds = fastpath.sort_records(*rec, frame.cfg)
-        ev[4].record()
-        ox, oy, ckw = frame.composite_inputs(sf)
-        tiled = kc.composite(sf, bounds, ox, oy, **ckw)
-        ev[5].record()
-        frame.image(tiled)
-        ev[6].record()
-        torch.cuda.synchronize()
-        if it >= 2:
-            for i, k in enumerate(names):
-                times[k].append(ev[i].elapsed_time(ev[i + 1]))
-    med = {k: statistics.median(v) for k, v in times.items()}
-    per_tile = (bounds[1:] - bounds[:-1]).float()
-    log(f"[4] {name} stages (ms, median of {REPS}): "
-        + ", ".join(f"{k} {v:.4f}" for k, v in med.items())
-        + f"; sum {sum(med.values()):.4f}; records per tile: max "
-        f"{int(per_tile.max())}, mean {float(per_tile.mean()):.1f}, median "
-        f"{float(per_tile.median()):.1f}")
+    bwd = dict(max_abs_err=max_abs, max_row_rel_err=worst, ms=ms, plain_ms=pms,
+               library_ms=None,
+               **bound(72 * nrec + 32 * npix,
+                       BWD_FLOP_VISITED * visited + BWD_FLOP_BLENDED * blended),
+               **work)
+    log(f"[2] composite_bwd {name}: worst row error {worst:.3e} of the row's "
+        f"scale, {loose} records beyond 1e-3; kernel {ms:.4f} ms, plain "
+        f"{pms:.4f} ms, bound {bwd['bound_ms']:.4f} ms ({bwd['bound_by']})")
+    return fwd, bwd
 
 
 def check_frame(name, frame, timed=True):
@@ -449,9 +416,11 @@ def check_fwdbwd(name, frame, loss=mean_sq_loss):
     return ms, grads
 
 
-def fwdbwd_stage_times(name, frame, loss=mean_sq_loss):
-    """Median CUDA-event time of each stage of one forward + backward, the
-    backward taken stage by stage with torch.autograd.grad."""
+def stage_times(name, frame, loss=mean_sq_loss):
+    """Median CUDA-event time of each stage of one forward + backward (after
+    two warm-up passes), the backward taken stage by stage with
+    torch.autograd.grad, and the per-tile record counts that bound the
+    compositor."""
     import torch
 
     from openglgaussiansplattingrenderer_tpu_torch.ops import fastpath
@@ -462,9 +431,10 @@ def fwdbwd_stage_times(name, frame, loss=mean_sq_loss):
     names = ("table", "cumsum", "expand", "sort", "composite", "image+loss",
              "image+loss bwd", "composite bwd", "sort bwd", "expand bwd (segsum)",
              "table bwd")
+    n_fwd = 5                       # table .. composite: the frame's stages
     times = {k: [] for k in names}
     grad = torch.autograd.grad
-    for it in range(REPS + 1):
+    for it in range(REPS + 2):
         ev = [torch.cuda.Event(enable_timing=True) for _ in range(len(names) + 1)]
         p = {k: v.detach().requires_grad_(True) for k, v in frame.params.items()}
         ev[0].record()
@@ -493,13 +463,17 @@ def fwdbwd_stage_times(name, frame, loss=mean_sq_loss):
         grad(table[0], list(p.values()), g_fields)
         ev[11].record()
         torch.cuda.synchronize()
-        if it >= 1:
+        if it >= 2:
             for i, k in enumerate(names):
                 times[k].append(ev[i].elapsed_time(ev[i + 1]))
     med = {k: statistics.median(v) for k, v in times.items()}
-    log(f"[6] {name} forward + backward stages (ms, median of {REPS}): "
+    per_tile = (bounds[1:] - bounds[:-1]).float()
+    log(f"[4] {name} forward + backward stages (ms, median of {REPS}): "
         + ", ".join(f"{k} {v:.4f}" for k, v in med.items())
-        + f"; sum {sum(med.values()):.4f}")
+        + f"; the frame's stages {sum(list(med.values())[:n_fwd]):.4f}; sum "
+        f"{sum(med.values()):.4f}; records per tile: max "
+        f"{int(per_tile.max())}, mean {float(per_tile.mean()):.1f}, median "
+        f"{float(per_tile.median()):.1f}")
 
 
 def check_training(frame):
@@ -616,8 +590,6 @@ def main() -> int:
     from openglgaussiansplattingrenderer_tpu_torch.ops.kernels import build
     from openglgaussiansplattingrenderer_tpu_torch.render import autotune_capacity
 
-    kernels_only = sys.argv[1:] == ["--kernels-only"]
-
     dev = torch.device("cuda")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -664,11 +636,13 @@ def main() -> int:
     results = {}
     with torch.no_grad():
         check_scan_and_expand(frames["uniform"], results)
-        check_composite(gate, results)
-        torch.cuda.synchronize()
-        if kernels_only:
-            log("[2] --kernels-only: stopping before the render path")
-            return 0
+        # kernels 4 and 5 at the main path's shapes; the gate scene's
+        # numbers ride along under "gate_scene"
+        fwd, bwd = check_composite("uniform flagship", frames["uniform"])
+        gate_fwd, gate_bwd = check_composite(
+            f"gate scene ({GATE_SPLATS} splats)", gate)
+        results["composite"] = dict(fwd, gate_scene=gate_fwd)
+        results["composite_bwd"] = dict(bwd, gate_scene=gate_bwd)
 
         # ---- 3. the render path --------------------------------------------
         reset_launches()
@@ -682,26 +656,13 @@ def main() -> int:
             assert render_launches[k] > 0, (
                 f"{k} kernel never launched on the render path")
 
-        pairs = {}
-        plain = frames["uniform"].plain_render(pairs)
+        plain = frames["uniform"].plain_render()
         err, bad = image_diff(img_u, plain)
         log(f"[3] uniform frame vs all-plain pipeline: max abs {err:.3e}, "
             f"{bad} px > 1e-3")
-        visited, blended = int(pairs["visited"]), int(pairs["blended"])
-        fwd_ops = FWD_FLOP_VISITED * visited + FWD_FLOP_BLENDED * blended
-        bwd_ops = BWD_FLOP_VISITED * visited + BWD_FLOP_BLENDED * blended
-        nrec, npix = int(pairs["records"]), FLAG_W * FLAG_H
-        b_fwd = bound(36 * nrec + 16 * npix, fwd_ops)
-        b_bwd = bound(72 * nrec + 32 * npix, bwd_ops)
-        log(f"[3] uniform frame compositor work: {nrec} records, {visited} "
-            f"pairs visited, {blended} blended; bound forward "
-            f"{b_fwd['bound_ms']:.4f} ms ({b_fwd['bound_by']}), backward "
-            f"{b_bwd['bound_ms']:.4f} ms ({b_bwd['bound_by']})")
         assert err <= GATE_MAX_ABS and bad <= GATE_MAX_PX, (
             "uniform frame diverges from the all-plain pipeline")
-
-        for name in ("uniform", "clustered"):
-            stage_times(f"{name} pair", frames[name])
+        del plain
 
         small = Frame(ply_io.make_synthetic_scene(150, seed=3, extent=2.0),
                       Camera(0.0, 0.0, -6.0, width=128, height=128),
@@ -715,14 +676,16 @@ def main() -> int:
         log(f"[3] 150-splat 128x128 frame, card vs CPU path: max abs {err_s:.3e}")
         assert err_s <= 1e-4, "small frame: card and CPU path disagree"
 
+    # ---- 4. stage times of one forward + backward ------------------------
+    for name in ("uniform", "clustered"):
+        stage_times(f"{name} pair", frames[name])
+
     # ---- 5. the training path -------------------------------------------
     launches = check_training(frames["uniform"])
 
     # ---- 6. forward + backward of the other scenes ------------------------
     check_fwdbwd("uniform pair", frames["uniform"])
-    fwdbwd_stage_times("uniform pair", frames["uniform"])
     check_fwdbwd("clustered pair", frames["clustered"])
-    fwdbwd_stage_times("clustered pair", frames["clustered"])
     del frames, scenes
     mcfg0 = RenderConfig.for_resolution(MSPLATS_W, MSPLATS_H, tile_px=32,
                                         chunk=MSPLATS_CHUNK)

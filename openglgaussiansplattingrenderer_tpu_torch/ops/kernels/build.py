@@ -50,7 +50,7 @@ SIGNATURES = {
 build_info = {"seconds": None, "ptxas": "", "path": None}
 
 
-class KernelCompileError(RuntimeError):
+class KernelBuildError(RuntimeError):
     """nvcc is missing or the CUDA sources did not compile."""
 
 
@@ -94,7 +94,7 @@ def _run_together(cmds) -> str:
     outs = [p.communicate()[0] for p in procs]
     for cmd, proc, out in zip(cmds, procs, outs):
         if proc.returncode != 0:
-            raise KernelCompileError(
+            raise KernelBuildError(
                 f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{out}")
     return "".join(outs)
 
@@ -122,7 +122,7 @@ def load_library() -> ctypes.CDLL:
     if not lib_path.exists():
         nvcc = find_nvcc()
         if nvcc is None:
-            raise KernelCompileError(
+            raise KernelBuildError(
                 "nvcc not found (PATH or the CUDA toolkit PyTorch reports): "
                 "the CUDA kernels cannot be built")
         BUILD_DIR.mkdir(parents=True, exist_ok=True)

@@ -225,7 +225,7 @@ def test_kernel_build_raises_without_nvcc(monkeypatch, tmp_path):
     monkeypatch.setattr(build, "BUILD_DIR", tmp_path)
     build.load_library.cache_clear()
     try:
-        with pytest.raises(build.KernelCompileError, match="nvcc"):
+        with pytest.raises(build.KernelBuildError, match="nvcc"):
             build.load_library()
     finally:
         build.load_library.cache_clear()
