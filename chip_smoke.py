@@ -7,11 +7,17 @@ Builds the port's CUDA kernels from ``openglgaussiansplattingrenderer_tpu_torch/
 csrc`` (nvcc, at first use), then:
 
 1. prints the card, its power limit, the PyTorch version and the build time;
-2. holds each of the five kernels against its plain PyTorch version on the
+2. holds each of the nine kernels against its plain PyTorch version on the
    card and times both (CUDA events, median), beside the least time the
    card could take for the same work (``bound_ms``) and, where one PyTorch
    call computes the same function, that call's time (``library_ms``):
-   prefix sum and expansion on the flagship frame, bit-equal; segment sum
+   prefix sum and expansion on the flagship frame, bit-equal; the radix
+   sort's histogram and scatter on the frame's own 6.29M packed keys, every
+   pass exact, and the whole sort against ``torch.sort(stable=True)``
+   element for element; the bucketing-level probe kernel exact on 64
+   chunks and timed through its probe at 6,291,456 records, and the
+   build-cache probe with its kernel (these two run last, behind every time
+   of the main paths); segment sum
    on the flagship frame's shapes with a seeded cotangent; compositor
    forward (image max abs diff <= 5e-3 with <= 10 px above 1e-3) and
    backward (per row within a stated share of the row's largest gradient,
@@ -23,14 +29,18 @@ csrc`` (nvcc, at first use), then:
    scenes), with every kernel launch counter reset just before and read
    just after; checks zero overflow, a finite image with coverage, every
    forward kernel launched, the uniform frame against the all-plain
-   pipeline, and a small frame against the port's CPU path;
+   pipeline, and a small frame against the port's CPU path; then the
+   uniform frame through the single-key record sorts (packed + radix and
+   hoisted + radix bit-equal to their ``torch.sort`` frames, hoisted, and
+   the q16 inference mode within 0.01 of the f32 frame), each with its own
+   launch counts, and q16 against f32 on a 512-splat scene within 2e-3;
 4. prints each flagship scene's per-stage device times of one forward +
    backward (CUDA events);
 5. drives the training path: five Adam steps of ``make_train_step`` (L1 +
    D-SSIM, per-splat densification statistic) on the uniform flagship scene
    with perturbed colours against its clean render, counters reset just
    before and read just after; checks finite gradients, zero overflow, a
-   falling loss and all five kernels launched; times forward + backward
+   falling loss and the training path's five kernels launched; times forward + backward
    and the whole step;
 6. times one forward + backward of the clustered flagship and of the
    1,000,000-splat 1920x1080 scene, and holds a small frame's gradients
@@ -66,6 +76,11 @@ GATE_MAX_ABS, GATE_MAX_PX = 5e-3, 10
 BWD_ROW_TOL = 1e-4
 SEGSUM_ROW_TOL = 1e-5              # of the row's largest plain sum
 GRAD_REL_TOL = 5e-3                # card vs CPU path, per parameter tensor
+# q16 against the f32 frame: the reference's own CPU-vs-GPU tolerance at
+# the flagship (saturation flips reach a few 1e-3 there), and the budget of
+# the JAX package's q16 test on its 512-splat 64x64 scene
+Q16_FLAG_TOL, Q16_SMALL_TOL = 1e-2, 2e-3
+BUCKET_C, BUCKET_K = 6 * 1024 * 1024, 32   # the bucketing probe's own size
 
 # The card's published peaks (NVIDIA H100 SXM data sheet): device memory
 # rate and float32 rate outside the tensor cores (a multiply-add counts 2).
@@ -91,6 +106,12 @@ KERNELS = {
                   f"{TPU_PKG}/ops/pallas/composite.py:237"),
     "composite_bwd": (f"{PKG}/csrc/composite_bwd.cu",
                       f"{TPU_PKG}/ops/pallas/composite.py:385"),
+    "radix_hist": (f"{PKG}/csrc/radix_sort.cu",
+                   f"{TPU_PKG}/ops/pallas/radix_sort.py:76"),
+    "radix_scatter": (f"{PKG}/csrc/radix_sort.cu",
+                      f"{TPU_PKG}/ops/pallas/radix_sort.py:133"),
+    "bucketer_level": (f"{PKG}/csrc/bucketer_probe.cu", "scripts/bucketer_probe.py:68"),
+    "probe_affine": (f"{PKG}/csrc/probe_affine.cu", "scripts/cache_key_probe.py:34"),
 }
 
 
@@ -134,11 +155,16 @@ def bound(nbytes: float, flops: float) -> dict:
 def kernel_wrappers():
     """name -> wrapper holding the launch counter, in KERNELS' order."""
     from openglgaussiansplattingrenderer_tpu_torch.ops.kernels import composite as kc
+    from openglgaussiansplattingrenderer_tpu_torch.ops.kernels import radix_sort as rx
     from openglgaussiansplattingrenderer_tpu_torch.ops.kernels import records as kr
     from openglgaussiansplattingrenderer_tpu_torch.ops.kernels import scan as ks
+    from openglgaussiansplattingrenderer_tpu_torch.probes import bucketer_probe, cache_key_probe
 
     return {"cumsum": ks.cumsum, "expand": kr.expand, "segsum": kr.segsum,
-            "composite": kc.composite, "composite_bwd": kc.composite_bwd}
+            "composite": kc.composite, "composite_bwd": kc.composite_bwd,
+            "radix_hist": rx.radix_hist, "radix_scatter": rx.radix_scatter,
+            "bucketer_level": bucketer_probe.bucketer_level,
+            "probe_affine": cache_key_probe.probe_affine}
 
 
 def reset_launches() -> None:
@@ -203,7 +229,7 @@ class Frame:
 
         table, counts, ekw = self.table()
         rec = kr.expand(*table, ks.cumsum(counts), **ekw)
-        return fastpath.sort_records(*rec, self.cfg)
+        return fastpath.sort_records(*rec, *self.size, self.cfg)
 
     def table(self):
         """((fields, tile_min, tile_ext, depth), counts, expand kwargs)."""
@@ -239,7 +265,7 @@ class Frame:
 
         table, counts, ekw = self.table()
         rec = kr.expand_plain(*table, ks.cumsum_plain(counts), **ekw)
-        sf, bounds = fastpath.sort_records(*rec, self.cfg)
+        sf, bounds = fastpath.sort_records(*rec, *self.size, self.cfg)
         ox, oy, ckw = self.composite_inputs(sf)
         return self.image(kc.composite_plain(sf, bounds, ox, oy, **ckw))
 
@@ -305,6 +331,226 @@ def check_scan_and_expand(frame, results):
     log(f"[2] segsum  C={cap} -> n={n}: {rel:.3e} of the row's scale; kernel "
         f"{ms:.4f} ms, plain {pms:.4f} ms, index_add_ {lms:.4f} ms, bound "
         f"{results['segsum']['bound_ms']:.4f} ms")
+
+
+def check_radix(frame, results):
+    """Kernels 6 and 7 on the uniform flagship frame's own packed keys: every
+    pass of the sort against the plain versions, exactly, and the whole
+    sort against torch.sort(stable=True), element for element."""
+    import torch
+
+    from openglgaussiansplattingrenderer_tpu_torch.ops.kernels import radix_sort as rx
+    from openglgaussiansplattingrenderer_tpu_torch.ops.kernels import records as kr
+    from openglgaussiansplattingrenderer_tpu_torch.ops.kernels import scan as ks
+
+    table, counts, ekw = frame.table()
+    _, rec_t, rec_d = kr.expand(*table, ks.cumsum(counts), **ekw)
+    del table
+    key64 = kr.packed_key(rec_t, rec_d)         # as the torch.sort path holds it
+    keys = kr.u32_bits(key64)                   # as the radix path holds it
+    c, dev = keys.numel(), keys.device
+    idx = torch.arange(c, dtype=torch.int32, device=dev)
+    bits, passes = rx.BITS, 32 // rx.BITS
+
+    def same(got, ref, what):
+        assert torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1]), (
+            f"radix_scatter {what}: differs from the plain version")
+
+    k, v = keys, idx[None, :].contiguous()
+    hist_ms, scat_ms = [], []
+    for p in range(passes):
+        shift = p * bits
+        cnt = rx.radix_hist(k, shift)
+        assert torch.equal(cnt, rx.radix_hist_plain(k, shift)), (
+            f"radix_hist pass {p}: differs from the plain version")
+        offs = rx._prefix_offsets(cnt)
+        got = rx.radix_scatter(k, v, offs, shift)
+        same(got, rx.radix_scatter_plain(k, v, offs, shift), f"pass {p}")
+        hist_ms.append(cuda_ms(lambda: rx.radix_hist(k, shift)))
+        scat_ms.append(cuda_ms(lambda: rx.radix_scatter(k, v, offs, shift)))
+        if p == 0:
+            hist_plain = cuda_ms(lambda: rx.radix_hist_plain(k, shift))
+            at = ((torch.arange(c, device=dev) // rx.CHUNK << bits)
+                  + (k & ((1 << bits) - 1)))
+            bincount = cuda_ms(lambda: torch.bincount(at, minlength=cnt.numel()))
+            scat_plain = cuda_ms(lambda: rx.radix_scatter_plain(k, v, offs, shift))
+            # nine payload rows, and the 4-bit digit of the JAX package
+            gen = torch.Generator(device=dev).manual_seed(8)
+            v9 = torch.randn((9, c), generator=gen, device=dev).view(torch.int32)
+            same(rx.radix_scatter(k, v9, offs, shift),
+                 rx.radix_scatter_plain(k, v9, offs, shift), "nine rows")
+            nine_ms = cuda_ms(lambda: rx.radix_scatter(k, v9, offs, shift))
+            del v9, at
+            cnt4 = rx.radix_hist(k, 0, 4)
+            assert torch.equal(cnt4, rx.radix_hist_plain(k, 0, 4)), "radix_hist, 4 bits"
+            offs4 = rx._prefix_offsets(cnt4)
+            same(rx.radix_scatter(k, v, offs4, 0, 4),
+                 rx.radix_scatter_plain(k, v, offs4, 0, 4), "4 bits")
+        k, v = got
+    rk, ri = torch.sort(key64, stable=True)
+    assert torch.equal(kr.u32_values(k), rk) and torch.equal(v[0].to(torch.int64), ri), (
+        "the radix passes differ from torch.sort(stable=True)")
+    sk, (si,) = rx.radix_sort(keys, (idx,), 32)
+    assert torch.equal(sk, k) and torch.equal(si, v[0]), (
+        "radix_sort differs from its passes")
+    whole = cuda_ms(lambda: rx.radix_sort(keys, (idx,), 32))
+    sort64 = cuda_ms(lambda: torch.sort(key64, stable=True))
+    # the hoisted path's key: the tile id alone, which int32 holds
+    kb = max(1, int(frame.cfg.num_tiles).bit_length())
+    st, (sti,) = rx.radix_sort(rec_t, (idx,), kb)
+    rt, rti = torch.sort(rec_t, stable=True)
+    assert torch.equal(st, rt) and torch.equal(sti.to(torch.int64), rti), (
+        "radix_sort of the tile ids differs from torch.sort(stable=True)")
+    whole_tile = cuda_ms(lambda: rx.radix_sort(rec_t, (idx,), kb))
+    sort32 = cuda_ms(lambda: torch.sort(rec_t, stable=True))
+
+    n_chunks = -(-c // rx.CHUNK)
+    table_bytes = 4 * n_chunks * (1 << bits)
+    # histogram: each key read once, the count table written; scatter: key and
+    # one payload row read and written, the offset table read; a shift, a
+    # mask and a rank a key
+    results["radix_hist"] = dict(
+        max_abs_err=0.0, ms=statistics.mean(hist_ms), pass_ms=hist_ms,
+        plain_ms=hist_plain, library_ms=bincount, **bound(4 * c + table_bytes, c))
+    results["radix_scatter"] = dict(
+        max_abs_err=0.0, ms=statistics.mean(scat_ms), pass_ms=scat_ms,
+        nine_rows_ms=nine_ms, plain_ms=scat_plain, library_ms=sort64,
+        library_is="torch.sort(stable=True) of the int64 key: all passes at once",
+        radix_sort_ms=whole, radix_sort_tile_key_ms=whole_tile,
+        torch_sort_int32_tile_key_ms=sort32, **bound(16 * c + table_bytes, 3 * c))
+    log(f"[2] radix_hist  C={c} keys, {bits}-bit digits, {n_chunks} chunks: every "
+        f"pass exact (and 4 bits once); kernel ms a pass "
+        + " ".join(f"{t:.4f}" for t in hist_ms)
+        + f", plain {hist_plain:.4f} ms, torch.bincount {bincount:.4f} ms, bound "
+        f"{results['radix_hist']['bound_ms']:.4f} ms")
+    log(f"[2] radix_scatter one payload row: every pass exact (and nine rows, and "
+        f"4 bits, once); kernel ms a pass " + " ".join(f"{t:.4f}" for t in scat_ms)
+        + f", with nine rows {nine_ms:.4f} ms, plain {scat_plain:.4f} ms, bound "
+        f"{results['radix_scatter']['bound_ms']:.4f} ms")
+    log(f"[2] radix_sort of the {c} packed keys with the source index, equal to "
+        f"torch.sort(stable=True) element for element: {whole:.4f} ms ({passes} "
+        f"passes) against torch.sort on the int64 key {sort64:.4f} ms; of the "
+        f"tile ids alone ({kb} bits): {whole_tile:.4f} ms against torch.sort on "
+        f"int32 {sort32:.4f} ms")
+
+
+def check_probes(results):
+    """Kernels 8 and 9 against their plain versions, and their probes: each
+    probe is driven with the launch counts at 0 and read after. Returns the
+    probes' launch counts."""
+    import torch
+
+    from openglgaussiansplattingrenderer_tpu_torch.probes import bucketer_probe as bp
+    from openglgaussiansplattingrenderer_tpu_torch.probes import cache_key_probe as cp
+
+    dev = torch.device("cuda")
+    rec = bp.make_records(64 * bp.R, dev, seed=1)
+    rec[bp.TILE_ROW, :bp.R] = 7.0                # a bucket deeper than its 128 slots
+    got, ref = bp.bucketer_level(rec, BUCKET_K), bp.bucketer_level_plain(rec, BUCKET_K)
+    assert torch.equal(got, ref), "bucketer_level differs from the plain version"
+    assert int((got != 0).sum()) > 0
+    del rec, got, ref
+    reset_launches()
+    probe = bp.run(BUCKET_C, BUCKET_K)
+    launches = read_launches()
+    rec = bp.make_records(BUCKET_C, dev)
+    ms = cuda_ms(lambda: bp.bucketer_level(rec, BUCKET_K))
+    pms = cuda_ms(lambda: bp.bucketer_level_plain(rec, BUCKET_K), reps=3, warmup=1)
+    n_chunks = BUCKET_C // bp.R
+    # 64 B a record read; 16 x 128 x 4 B a bucket a chunk written
+    results["bucketer_level"] = dict(
+        max_abs_err=0.0, ms=ms, plain_ms=pms, library_ms=None, probe_ms=probe[
+            "bucketer_level_lower_bound_ms"],
+        **bound(4 * bp.ROWS * BUCKET_C + 4 * bp.ROWS * bp.CARRY * BUCKET_K * n_chunks,
+                3 * BUCKET_C))
+    log(f"[2] bucketer_level exact on 64 chunks; probe {json.dumps(probe)}; at "
+        f"C={BUCKET_C}, K={BUCKET_K}: kernel {ms:.4f} ms, plain {pms:.4f} ms, bound "
+        f"{results['bucketer_level']['bound_ms']:.4f} ms")
+    del rec
+
+    gen = torch.Generator(device=dev).manual_seed(9)
+    for x in (torch.ones((8, 128), device=dev),
+              torch.randn(1_000_003, generator=gen, device=dev)):
+        assert torch.equal(cp.probe_affine(x), cp.probe_affine_plain(x)), (
+            "probe_affine differs from x * 2 + 1")
+    x = torch.ones((8, 128), device=dev)
+    one = torch.ones((), device=dev)
+    ms, pms = cuda_ms(lambda: cp.probe_affine(x)), cuda_ms(lambda: cp.probe_affine_plain(x))
+    lms = cuda_ms(lambda: torch.add(one, x, alpha=2.0))
+    results["probe_affine"] = dict(max_abs_err=0.0, ms=ms, plain_ms=pms, library_ms=lms,
+                                   **bound(8 * x.numel(), 2 * x.numel()))
+    reset_launches()
+    cache = cp.run()
+    launches["probe_affine"] = read_launches()["probe_affine"]
+    log(f"[2] probe_affine exact at (8, 128) and 1,000,003 values; kernel {ms:.4f} "
+        f"ms, plain {pms:.4f} ms, torch.add(alpha=2) {lms:.4f} ms; build-cache "
+        f"probe {json.dumps(cache)}")
+    return launches
+
+
+def check_single_key_frames(frame, img_pair, img_packed):
+    """The uniform flagship frame through the single-key record sorts. Each
+    configuration renders once with the launch counts at 0, then is checked
+    and timed. Returns {name: launch counts of that one frame}."""
+    import dataclasses
+
+    import torch
+
+    from openglgaussiansplattingrenderer_tpu_torch.splats import inference_config
+
+    packed = dataclasses.replace(frame.cfg, depth_key="packed")
+    hoisted = dataclasses.replace(frame.cfg, hoist_depth_sort=True)
+    cfgs = {"packed+radix": dataclasses.replace(packed, record_sort="radix"),
+            "hoisted": hoisted,
+            "hoisted+radix": dataclasses.replace(hoisted, record_sort="radix"),
+            "packed+q16": inference_config(frame.cfg)}
+    images, times, counts = {}, {}, {}
+    for name, cfg in cfgs.items():
+        f = frame.with_cfg(cfg)
+        reset_launches()
+        f.render()
+        torch.cuda.synchronize()
+        counts[name] = read_launches()
+        radix = cfg.record_sort == "radix"
+        for k in ("radix_hist", "radix_scatter"):
+            assert (counts[name][k] > 0) == radix, (
+                f"uniform {name}: {k} launched {counts[name][k]} times")
+        log(f"[3] kernel launches of one uniform {name} frame: {counts[name]}")
+        images[name], times[name] = check_frame(f"uniform {name}", f)
+    assert torch.equal(images["packed+radix"], img_packed), (
+        "the packed + radix frame differs from the packed torch.sort frame")
+    assert torch.equal(images["hoisted+radix"], images["hoisted"]), (
+        "the hoisted + radix frame differs from the hoisted torch.sort frame")
+    err, bad = image_diff(images["hoisted"], img_pair)
+    assert err <= GATE_MAX_ABS and bad <= GATE_MAX_PX, (
+        f"hoisted frame vs pair frame: max abs {err:.3e}, {bad} px > 1e-3")
+    q_err, q_bad = image_diff(images["packed+q16"], img_packed)
+    assert 0.0 < q_err < Q16_FLAG_TOL, f"q16 flagship frame: max abs {q_err:.3e}"
+    log(f"[3] packed + radix and hoisted + radix frames bit-equal to their "
+        f"torch.sort frames; hoisted vs pair max abs {err:.3e}; q16 vs f32 packed "
+        f"max abs {q_err:.3e} ({q_bad} px > 1e-3, limit {Q16_FLAG_TOL}); "
+        f"flagship_fps_inference {1e3 / times['packed+q16']:.2f}")
+    return counts
+
+
+def check_small_q16(device):
+    """q16 against f32 on the 512-splat 64x64 scene of the JAX package's q16
+    test: inside its 2e-3 budget, and not zero."""
+    import torch
+
+    from openglgaussiansplattingrenderer_tpu_torch import Camera, RenderConfig
+    from openglgaussiansplattingrenderer_tpu_torch.io import ply as ply_io
+    from openglgaussiansplattingrenderer_tpu_torch.splats import inference_config
+
+    cfg = RenderConfig(chunk=32, dup_capacity_factor=8.0, depth_key="packed")
+    f32 = Frame(ply_io.make_synthetic_scene(512, seed=7, extent=1.5),
+                Camera(0.0, 0.0, -4.0, width=64, height=64), cfg, device)
+    (img_f, st_f), (img_q, _) = f32.render(), f32.with_cfg(inference_config(cfg)).render()
+    assert int(st_f["overflow"]) == 0
+    err = float((img_q[..., :3] - img_f[..., :3]).abs().max())
+    log(f"[3] 512-splat 64x64 frame, q16 vs f32: max abs {err:.3e} (limit "
+        f"{Q16_SMALL_TOL})")
+    assert 0.0 < err < Q16_SMALL_TOL, "small frame: q16 outside its budget"
 
 
 def check_composite(name, frame):
@@ -390,7 +636,7 @@ def check_frame(name, frame, timed=True):
     log(f"[3] {name}: records {st['num_records']}, binned "
         f"{st['binned_records']}, max_bin {st['max_bin']}, coverage "
         f"{coverage:.4f}, frame {ms:.3f} ms (median of {REPS})")
-    return img
+    return img, ms
 
 
 def mean_sq_loss(img):
@@ -445,7 +691,7 @@ def stage_times(name, frame, loss=mean_sq_loss):
         ev[2].record()
         rec = kr.expand(*table, cum, **kw)
         ev[3].record()
-        sf, bounds = fastpath.sort_records(*rec, frame.cfg)
+        sf, bounds = fastpath.sort_records(*rec, *frame.size, frame.cfg)
         ev[4].record()
         ox, oy, ckw = frame.composite_inputs(sf)
         tiled = kc.composite(sf, bounds, ox, oy, **ckw)
@@ -536,8 +782,8 @@ def check_training(frame):
         end.params = params_from_raw(state.raw)
         overflow = int(end.render()[1]["overflow"])
     assert overflow == 0, f"training: overflow {overflow} after the steps"
-    for k, v in launches.items():
-        assert v > 0, f"{k} kernel never launched on the training path"
+    for k in ("cumsum", "expand", "segsum", "composite", "composite_bwd"):
+        assert launches[k] > 0, f"{k} kernel never launched on the training path"
     log(f"[5] training, {n} splats at {w}x{h}, {TRAIN_STEPS} steps of "
         f"make_train_step (lambda_dssim {tc.lambda_dssim}, grad norms): loss "
         + " ".join(f"{v:.6f}" for v in loss_hist)
@@ -636,6 +882,7 @@ def main() -> int:
     results = {}
     with torch.no_grad():
         check_scan_and_expand(frames["uniform"], results)
+        check_radix(frames["uniform"], results)
         # kernels 4 and 5 at the main path's shapes; the gate scene's
         # numbers ride along under "gate_scene"
         fwd, bwd = check_composite("uniform flagship", frames["uniform"])
@@ -646,15 +893,20 @@ def main() -> int:
 
         # ---- 3. the render path --------------------------------------------
         reset_launches()
-        img_u = check_frame("uniform pair", frames["uniform"])
+        img_u, _ = check_frame("uniform pair", frames["uniform"])
         packed = dataclasses.replace(frames["uniform"].cfg, depth_key="packed")
-        check_frame("uniform packed", frames["uniform"].with_cfg(packed))
+        img_p, _ = check_frame("uniform packed", frames["uniform"].with_cfg(packed))
         check_frame("clustered pair", frames["clustered"])
         render_launches = read_launches()
         log(f"[3] kernel launches on the render path: {render_launches}")
         for k in ("cumsum", "expand", "composite"):
             assert render_launches[k] > 0, (
                 f"{k} kernel never launched on the render path")
+        for k in ("radix_hist", "radix_scatter"):
+            assert render_launches[k] == 0, f"{k} launched on the torch.sort path"
+        sort_launches = check_single_key_frames(frames["uniform"], img_u, img_p)
+        del img_p
+        check_small_q16(dev)
 
         plain = frames["uniform"].plain_render()
         err, bad = image_diff(img_u, plain)
@@ -698,14 +950,27 @@ def main() -> int:
     check_fwdbwd(f"{MSPLATS} splats {MSPLATS_W}x{MSPLATS_H}", msplats)
     check_small_gradients(dev)
 
+    # ---- 2, continued: the probe kernels (3.2 GB written a launch, and a
+    # rebuild of the library: kept behind every time of the main paths) -----
+    with torch.no_grad():
+        probe_launches = check_probes(results)
+
     # ---- 7. results ---------------------------------------------------------
-    # "launches" counts the training path's five steps; the render path's
-    # three frames (and their timing repetitions) are counted beside it
+    # "launches" counts the training path's five steps for the first five
+    # kernels, one packed + radix frame for the two radix-sort kernels and
+    # one run of its probe for each probe kernel; the default render path's
+    # three frames (and their timing repetitions) and one packed + radix
+    # frame are counted beside it
+    launches.update({k: sort_launches["packed+radix"][k]
+                     for k in ("radix_hist", "radix_scatter")})
+    launches.update({k: probe_launches[k] for k in ("bucketer_level", "probe_affine")})
     rows = []
     for name, (src, replaces) in KERNELS.items():
+        assert launches[name] > 0, f"{name} kernel never launched on its path"
         rows.append({"name": name, "route": "cuda", "source": src,
                      "replaces": replaces, "launches": launches[name],
                      "render_path_launches": render_launches[name],
+                     "radix_frame_launches": sort_launches["packed+radix"][name],
                      **results[name]})
     log(json.dumps({"kernels": rows}))
     log(json.dumps({"ok": True, "device": {

@@ -3,8 +3,10 @@
 The counterpart of ``openglgaussiansplattingrenderer_tpu`` (JAX/Pallas),
 which stays the reference. Plain tensor code is PyTorch; the kernels of
 the frame and of its gradient (prefix sum, record expansion and its
-segment-sum transpose, tile compositor forward and backward) are CUDA C++
-for Hopper in ``csrc/``, built with nvcc at first use. On CPU tensors every
+segment-sum transpose, tile compositor forward and backward), of the radix
+record sort (digit histogram, stable scatter) and of the two probes in
+``probes`` are CUDA C++ for Hopper in ``csrc/``, built with nvcc at first
+use. On CPU tensors every
 kernel wrapper runs its plain PyTorch version instead. ``train`` fits splat
 parameters with Adam on those gradients. This package never imports JAX.
 """

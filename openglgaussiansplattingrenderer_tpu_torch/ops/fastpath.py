@@ -4,19 +4,31 @@ Counterpart of ``openglgaussiansplattingrenderer_tpu/ops/fastpath.py``.
 Stage map, kernels in ``ops/kernels`` (forward / backward):
 
   preprocess (torch elementwise / autograd)               [N]
+    -> (hoist_depth_sort only) stable depth sort of the
+       splat table               (torch.sort / one scatter)         [N]
     -> prefix sum of duplicate counts    (kernel: scan / integers, none)
     -> expand to splat-major records     (kernel: expand / segsum) [C]
-    -> stable (tile, depth) record sort  (torch.sort / one scatter) [C]
+    -> stable record sort                (see below / one scatter)  [C]
     -> per-tile bounds                   (searchsorted / integers, none)
     -> tile compositor                   (kernel: composite / composite_bwd)
     -> assemble_image
 
+The record sort orders by (tile, depth). By default records carry their own
+depth and the key is the exact pair (``depth_key="pair"``, one int64) or
+one u32, tile * 2^22 + 22-bit depth (``"packed"``); overflow past
+``capacity`` then drops records in splat order. With
+``hoist_depth_sort=True`` the splat table is depth-sorted first, records
+come out depth-ordered, the record sort is a stable sort on the tile id
+alone, and overflow drops the farthest records. The single-key sorts
+(packed, hoisted) run on ``torch.sort`` (``record_sort="lax"``) or on the
+port's radix-sort kernels (``"radix"``: kernels radix_hist and
+radix_scatter, plus scan once a pass); the packed ``"lax"`` sort can carry
+the fields quantised to five u32 words (``sort_payload="q16"``, inference
+only). ``stats["overflow"]`` reports dropped records.
+
 The frame is differentiable with respect to every float parameter: each
 kernel with a gradient sits in a ``torch.autograd.Function`` whose backward
 is a kernel too. Sort keys (tile, depth) and all statistics are detached.
-Records carry their own depth, so there is no per-splat depth sort
-(``hoist_depth_sort=False``); overflow past ``capacity`` drops records in
-splat order, and ``stats["overflow"]`` reports it.
 """
 
 from __future__ import annotations
@@ -32,6 +44,7 @@ from openglgaussiansplattingrenderer_tpu_torch.ops.compositing import (
     padded_dims,
 )
 from openglgaussiansplattingrenderer_tpu_torch.ops.kernels import composite as kc
+from openglgaussiansplattingrenderer_tpu_torch.ops.kernels import radix_sort as rx
 from openglgaussiansplattingrenderer_tpu_torch.ops.kernels import records as kr
 from openglgaussiansplattingrenderer_tpu_torch.ops.kernels import scan as ks
 from openglgaussiansplattingrenderer_tpu_torch.ops.transforms import build_covariance
@@ -39,22 +52,6 @@ from openglgaussiansplattingrenderer_tpu_torch.ops.transforms import build_covar
 # The JAX package rounds capacity to whole expand grid steps (512-record
 # sub-blocks x 8); keeping its rounding keeps num_records and overflow equal.
 CAPACITY_MULTIPLE = 512 * 8
-
-
-def check_supported(cfg: RenderConfig) -> None:
-    """Raise for the configurations the port does not run yet."""
-    if cfg.hoist_depth_sort:
-        raise NotImplementedError(
-            "hoist_depth_sort=True is not ported yet (ROADMAP.md, modules "
-            "to port: fast-path forward)")
-    if cfg.record_sort != "lax":
-        raise NotImplementedError(
-            "record_sort='radix' waits for the radix-sort kernels "
-            "(ROADMAP.md, kernels to port: 6 and 7)")
-    if cfg.sort_payload != "f32":
-        raise NotImplementedError(
-            "sort_payload='q16' is not ported yet (ROADMAP.md, modules to "
-            "port: q16 inference mode)")
 
 
 def composite_kwargs(width: int, height: int, cfg: RenderConfig) -> dict:
@@ -118,6 +115,26 @@ def splat_table(params: Dict[str, torch.Tensor], view, vp, focal_x, focal_y,
             prep["tile_ext"].contiguous(), depth.contiguous()), prep
 
 
+def depth_sort_table(table, prep):
+    """The ``hoist_depth_sort`` stage: the splat table and the duplicate
+    counts in stable depth order, invalid splats last (depth +inf). The
+    fields' cotangents go back through the sort's single scatter. Returns
+    (table, counts).
+
+    ``torch.sort`` takes -0.0 and +0.0 as equal where ``lax.sort`` puts
+    -0.0 first; a valid splat lies in front of the camera, its depth is
+    positive, and the two orders are the same.
+    """
+    fields, tile_min, tile_ext, _ = table
+    inf = torch.full((), float("inf"), device=fields.device)
+    key = torch.where(prep["valid"], prep["depth"], inf).detach()
+    sk, si, sf = kr.sort_with_payload(key, fields)
+    zero = torch.zeros((), dtype=torch.float32, device=fields.device)
+    depth = torch.where(torch.isfinite(sk), sk, zero)
+    return (sf.contiguous(), tile_min[si].contiguous(), tile_ext[si].contiguous(),
+            depth), prep["counts"][si].contiguous()
+
+
 def expand_depth_records(params: Dict[str, torch.Tensor], view, vp, focal_x,
                          focal_y, tan_fovx, tan_fovy, width: int, height: int,
                          cfg: RenderConfig):
@@ -129,8 +146,11 @@ def expand_depth_records(params: Dict[str, torch.Tensor], view, vp, focal_x,
     n = params["means"].shape[0]
     table, prep = splat_table(params, view, vp, focal_x, focal_y, tan_fovx,
                               tan_fovy, width, height, cfg)
+    counts = prep["counts"]
+    if cfg.hoist_depth_sort:
+        table, counts = depth_sort_table(table, prep)
     kw = expand_kwargs(n, width, height, cfg)
-    cum_incl = ks.cumsum(prep["counts"])
+    cum_incl = ks.cumsum(counts)
     total_all = cum_incl[-1] if n else torch.zeros(
         (), dtype=torch.int32, device=cum_incl.device)
     total = torch.clamp_max(total_all, kw["capacity"])
@@ -139,24 +159,59 @@ def expand_depth_records(params: Dict[str, torch.Tensor], view, vp, focal_x,
                                  "total_all": total_all}
 
 
-def sort_records(rec_f, rec_t, rec_d, cfg: RenderConfig):
+def check_sort_config(cfg: RenderConfig) -> None:
+    """Raise for the record-sort options that do not compose."""
+    if (cfg.record_sort == "radix" and not cfg.hoist_depth_sort
+            and cfg.depth_key != "packed"):
+        raise ValueError(
+            "record_sort='radix' needs a single-key sort: depth_key='packed' "
+            "or hoist_depth_sort=True (the 'pair' mode is two f32 keys)")
+    if cfg.sort_payload == "q16" and (cfg.hoist_depth_sort
+                                      or cfg.depth_key != "packed"):
+        raise ValueError(
+            "sort_payload='q16' packs the single-key record sort: it needs "
+            "depth_key='packed' with hoist_depth_sort=False")
+    if (cfg.depth_key == "packed" and not cfg.hoist_depth_sort
+            and cfg.num_tiles > 512):
+        raise ValueError("depth_key='packed' needs num_tiles <= 512")
+
+
+def sort_records(rec_f, rec_t, rec_d, width: int, height: int,
+                 cfg: RenderConfig):
     """Stable (tile, depth) record sort and per-tile bounds.
 
     Returns (sorted fields (9, C), bounds (T+1,) int32)."""
+    check_sort_config(cfg)
     t = cfg.num_tiles
     dev = rec_f.device
-    if cfg.depth_key == "packed":
+    radix = cfg.record_sort == "radix"
+    tile_kb = max(1, int(t).bit_length())            # tile ids 0..t (t = invalid)
+    if cfg.hoist_depth_sort:
+        # records arrive depth-ordered, so a stable sort on the tile id alone
+        # suffices
+        if radix:
+            sk, _, sf = rx.radix_sort_with_payload(rec_t, rec_f, tile_kb)
+        else:
+            sk, _, sf = kr.sort_with_payload(rec_t, rec_f)
+        tile_bnd = torch.arange(t + 1, dtype=torch.int32, device=dev)
+    elif cfg.depth_key == "packed":
         # u32 key tile * 2^22 + 22-bit depth (fastpath.py "packed")
-        if t > 512:
-            raise ValueError("depth_key='packed' needs num_tiles <= 512")
-        key = kr.packed_key(rec_t, rec_d)
         tile_bnd = torch.arange(t + 1, dtype=torch.int64, device=dev) << 22
+        if radix:
+            sk, _, sf = rx.radix_sort_with_payload(
+                kr.packed_key_u32(rec_t, rec_d), rec_f, 22 + tile_kb)
+            # the invalid tile's keys have the top bit set: compare unsigned
+            sk = kr.u32_values(sk)
+        elif cfg.sort_payload == "q16":
+            wp, hp = padded_dims(width, height, cfg)
+            sk, sf = kr.sort_records_q16(kr.packed_key(rec_t, rec_d), rec_f, wp, hp)
+        else:
+            sk, _, sf = kr.sort_with_payload(kr.packed_key(rec_t, rec_d), rec_f)
     else:
         # "pair" (and "reference", which the JAX fast path also sorts as
         # the exact pair): lexicographic (tile, float depth)
-        key = kr.pair_key(rec_t, rec_d)
+        sk, _, sf = kr.sort_with_payload(kr.pair_key(rec_t, rec_d), rec_f)
         tile_bnd = torch.arange(t + 1, dtype=torch.int64, device=dev) << 32
-    sk, _, sf = kr.sort_with_payload(key, rec_f)
     bounds = torch.searchsorted(sk, tile_bnd, right=False).to(torch.int32)
     return sf, bounds
 
@@ -166,7 +221,6 @@ def render_fast(params: Dict[str, torch.Tensor], view, vp, focal_x, focal_y,
                 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Render one frame. Returns ((H, W, 4) image, stats) with the JAX
     package's stats keys."""
-    check_supported(cfg)
     rec_f, rec_t, rec_d, info = expand_depth_records(
         params, view, vp, focal_x, focal_y, tan_fovx, tan_fovy, width, height,
         cfg)
@@ -175,7 +229,7 @@ def render_fast(params: Dict[str, torch.Tensor], view, vp, focal_x, focal_y,
     capacity = rec_f.shape[1]
     t = cfg.num_tiles
 
-    sf, bounds = sort_records(rec_f, rec_t, rec_d, cfg)
+    sf, bounds = sort_records(rec_f, rec_t, rec_d, width, height, cfg)
     tiled, _, counts_t = composite_sorted(
         sf, bounds, num_tiles=t,
         tile_ids=torch.arange(t, dtype=torch.int32, device=sf.device),

@@ -23,7 +23,7 @@ import shutil
 import subprocess
 import time
 from pathlib import Path
-from typing import Optional
+from typing import Optional, Tuple
 
 CSRC = Path(__file__).resolve().parents[2] / "csrc"
 BUILD_DIR = CSRC / "build"
@@ -33,7 +33,7 @@ ARCH = "-gencode=arch=compute_90a,code=sm_90a"
 NVCC_FLAGS = [ARCH, "-std=c++17", "-O3", "--fmad=false",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
-_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_P, _I, _F, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
 SIGNATURES = {
     "gs_cumsum_tile": [],
     "gs_cumsum_i32": [_P, _P, _P, _I, _P],
@@ -43,6 +43,12 @@ SIGNATURES = {
     "gs_composite_bwd": [_P, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _F,
                          _F, _P],
     "gs_segsum": [_P, _I, _P, _I, _P, _P],
+    "gs_radix_chunk": [],
+    "gs_radix_hist": [_P, _I, _I, _I, _P, _P],
+    "gs_radix_scatter": [_P, _P, _I, _I, _I, _I, _P, _P, _P, _P],
+    "gs_bucketer_chunk": [],
+    "gs_bucketer_level": [_P, _L, _I, _F, _P, _P],
+    "gs_probe_affine": [_P, _P, _L, _P],
 }
 
 # filled by the build: seconds the nvcc run took (0.0 when the library was
@@ -68,18 +74,20 @@ def find_nvcc() -> Optional[str]:
     return None
 
 
-def sources():
-    return sorted(CSRC.glob("*.cu"))
+def sources(csrc: Path = CSRC):
+    return sorted(csrc.glob("*.cu"))
 
 
-def headers():
+def headers(csrc: Path = CSRC):
     """Headers shared between sources; an edit to one rebuilds the library."""
-    return sorted(CSRC.glob("*.cuh"))
+    return sorted(csrc.glob("*.cuh"))
 
 
-def _digest() -> str:
+def digest(csrc: Path = CSRC) -> str:
+    """The name of the library built from ``csrc``: a hash of the flags and
+    of every source's and header's name and bytes."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in sources() + headers():
+    for src in sources(csrc) + headers(csrc):
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return h.hexdigest()[:16]
@@ -99,39 +107,50 @@ def _run_together(cmds) -> str:
     return "".join(outs)
 
 
-def _compile(nvcc: str, lib_path: Path) -> None:
-    """One ``nvcc -c`` per source, all running at once, then one link."""
+def _compile(nvcc: str, lib_path: Path, csrc: Path) -> str:
+    """One ``nvcc -c`` per source of ``csrc``, all running at once, then
+    one link; returns the compilers' output."""
     stem = f"{lib_path.stem}.{os.getpid()}"
-    objs = [BUILD_DIR / f"{stem}.{src.stem}.o" for src in sources()]
-    tmp = BUILD_DIR / f"{stem}.tmp"
+    srcs = sources(csrc)
+    objs = [lib_path.parent / f"{stem}.{src.stem}.o" for src in srcs]
+    tmp = lib_path.parent / f"{stem}.tmp"
     try:
-        build_info["ptxas"] = _run_together(
+        ptxas = _run_together(
             [[nvcc, *NVCC_FLAGS, "-c", str(src), "-o", str(obj)]
-             for src, obj in zip(sources(), objs)])
+             for src, obj in zip(srcs, objs)])
         _run_together([[nvcc, ARCH, "-shared", "-o", str(tmp), *map(str, objs)]])
         os.replace(tmp, lib_path)
     finally:
         for f in (*objs, tmp):
             f.unlink(missing_ok=True)
+    return ptxas
+
+
+def build_library(csrc: Path, build_dir: Path) -> Tuple[Path, float, str]:
+    """Build the sources in ``csrc`` into ``build_dir`` unless the library
+    of their digest is there already. Returns (library path, seconds the
+    nvcc run took or 0.0, the compilers' output or "")."""
+    lib_path = build_dir / f"gs_kernels_{digest(csrc)}.so"
+    if lib_path.exists():
+        return lib_path, 0.0, ""
+    nvcc = find_nvcc()
+    if nvcc is None:
+        raise KernelBuildError(
+            "nvcc not found (PATH or the CUDA toolkit PyTorch reports): "
+            "the CUDA kernels cannot be built")
+    build_dir.mkdir(parents=True, exist_ok=True)
+    t0 = time.perf_counter()
+    ptxas = _compile(nvcc, lib_path, csrc)
+    seconds = time.perf_counter() - t0
+    (build_dir / f"{lib_path.stem}.ptxas.txt").write_text(ptxas)
+    return lib_path, seconds, ptxas
 
 
 @functools.lru_cache(maxsize=1)
 def load_library() -> ctypes.CDLL:
     """Build (if needed) and load the kernel library; cached per process."""
-    lib_path = BUILD_DIR / f"gs_kernels_{_digest()}.so"
-    if not lib_path.exists():
-        nvcc = find_nvcc()
-        if nvcc is None:
-            raise KernelBuildError(
-                "nvcc not found (PATH or the CUDA toolkit PyTorch reports): "
-                "the CUDA kernels cannot be built")
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        t0 = time.perf_counter()
-        _compile(nvcc, lib_path)
-        build_info["seconds"] = time.perf_counter() - t0
-        (BUILD_DIR / f"{lib_path.stem}.ptxas.txt").write_text(build_info["ptxas"])
-    else:
-        build_info["seconds"] = 0.0
+    lib_path, build_info["seconds"], build_info["ptxas"] = build_library(
+        CSRC, BUILD_DIR)
     lib = ctypes.CDLL(str(lib_path))
     for name, argtypes in SIGNATURES.items():
         fn = getattr(lib, name)

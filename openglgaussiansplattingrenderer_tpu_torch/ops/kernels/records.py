@@ -7,7 +7,12 @@ joined by ``Expand``, a ``torch.autograd.Function``; and the stable payload
 sort, which is ``torch.sort(stable=True)`` on the key plus one gather of
 the fields -- the JAX package's ``SORT_MODE="gather"`` form, proven
 bit-identical to its payload sort. Its gradient scatters the cotangents
-back by the recorded source index.
+back by the recorded source index. The same sort on the radix-sort kernels
+is ``radix_sort.radix_sort_with_payload``. Also here: the record sort keys
+(``pair_key``, ``packed_key`` and its u32 form) and the q16 inference mode,
+which sorts the nine fields packed into five u32 words
+(``sort_records_q16``; plain torch, as it is plain ``jnp`` in the JAX
+package).
 
 Records are kept as a (9, C) float32 field array (mx, my, A, B, C, op, r,
 g, b), an int32 tile id per record (``num_tiles`` marks an invalid record)
@@ -232,3 +237,117 @@ def packed_key(tile: torch.Tensor, depth: torch.Tensor) -> torch.Tensor:
     qd = torch.clamp_max((depth.clamp(0.0, 1.0) * float(1 << 22)).to(torch.int64),
                          (1 << 22) - 1)
     return tile.to(torch.int64) * (1 << 22) + qd
+
+
+def u32_bits(x: torch.Tensor) -> torch.Tensor:
+    """int64 values in [0, 2^32) -> the int32 tensor with the same 32 bits
+    (PyTorch has little uint32 arithmetic, so u32 words are held so)."""
+    return (x - ((x >> 31) << 32)).to(torch.int32)
+
+
+def u32_values(x: torch.Tensor) -> torch.Tensor:
+    """The inverse of ``u32_bits``: int32 bit patterns -> int64 values."""
+    return x.to(torch.int64) & 0xFFFFFFFF
+
+
+def packed_key_u32(tile: torch.Tensor, depth: torch.Tensor) -> torch.Tensor:
+    """``packed_key`` as u32 bit patterns in int32, the radix sort's key
+    type (the invalid tile 512 sets the top bit)."""
+    return u32_bits(packed_key(tile, depth))
+
+
+# ---------------------------------------------------------------------------
+# quantized-payload record sort (the "q16" inference precision mode)
+# ---------------------------------------------------------------------------
+# Inference does not need bit-exact f32 fields, so this mode packs the 9
+# fields into five u32 words before the sort and unpacks them after:
+#
+#   w0 = mx:24-bit fixed over [-wp, 2*wp)  | opacity[15:8]
+#   w1 = my:24-bit fixed over [-hp, 2*hp)  | opacity[7:0]
+#   w2 = conic A (f16) << 16 | conic B (f16)
+#   w3 = conic C (f16) << 16 | red   (f16)
+#   w4 = green   (f16) << 16 | blue  (f16)
+#
+# The words equal the JAX package's bit for bit: the same float32
+# expression order, round-half-to-even, and float16 casts that round to
+# nearest even. The word arithmetic runs in int64 (a shift of an int32
+# that holds a u32 would smear its sign) and the words are stored as int32
+# bit patterns. Means outside [-wp, 2*wp) x [-hp, 2*hp) clamp to the range
+# edge. INFERENCE ONLY: round and clamp are flat almost everywhere, so the
+# backward of ``sort_records_q16`` raises instead of returning zeros.
+
+_Q16_POS_BITS = 24
+
+
+def q16_pack(fields: torch.Tensor, wp: int, hp: int) -> torch.Tensor:
+    """(9, C) float32 fields -> (5, C) int32 words (u32 bit patterns)."""
+    mx, my, a, b, c, op, r, g, bl = fields
+    m = (1 << _Q16_POS_BITS) - 1
+
+    def fix24(x, lo, hi):
+        s = float(m) / (hi - lo)
+        return torch.clamp(torch.round((x - lo) * s), 0.0, float(m)).to(torch.int64)
+
+    def f16(x):
+        return x.to(torch.float16).view(torch.int16).to(torch.int64) & 0xFFFF
+
+    opq = torch.clamp(torch.round(op * 65535.0), 0.0, 65535.0).to(torch.int64)
+    return u32_bits(torch.stack([
+        fix24(mx, -wp, 2.0 * wp) * 256 + (opq >> 8),
+        fix24(my, -hp, 2.0 * hp) * 256 + (opq & 255),
+        f16(a) * 65536 + f16(b),
+        f16(c) * 65536 + f16(r),
+        f16(g) * 65536 + f16(bl)]))
+
+
+def q16_unpack(words: torch.Tensor, wp: int, hp: int) -> torch.Tensor:
+    """(5, C) int32 words -> (9, C) float32 fields."""
+    w0, w1, w2, w3, w4 = u32_values(words)
+    m = (1 << _Q16_POS_BITS) - 1
+
+    def unfix24(q, lo, hi):
+        s = (hi - lo) / float(m)
+        return q.to(torch.float32) * s + lo
+
+    def unf16(q):
+        # 16 bits in int64 -> the int16 with those bits -> float16
+        return (q - ((q >> 15) << 16)).to(torch.int16).view(torch.float16).to(
+            torch.float32)
+
+    op = ((w0 & 255) * 256 + (w1 & 255)).to(torch.float32) / 65535.0
+    return torch.stack([
+        unfix24(w0 >> 8, -wp, 2.0 * wp), unfix24(w1 >> 8, -hp, 2.0 * hp),
+        unf16(w2 >> 16), unf16(w2 & 0xFFFF), unf16(w3 >> 16), op,
+        unf16(w3 & 0xFFFF), unf16(w4 >> 16), unf16(w4 & 0xFFFF)])
+
+
+class SortRecordsQ16(torch.autograd.Function):
+    """Float fields in, float fields out, so that the guard spans the
+    integer region: autograd prunes a function of integer words from the
+    graph, and a guard inside it would never run."""
+
+    @staticmethod
+    def forward(ctx, key, fields, wp, hp):
+        sk, si = torch.sort(key, stable=True)
+        ctx.mark_non_differentiable(sk)
+        return sk, q16_unpack(q16_pack(fields, wp, hp).index_select(1, si), wp, hp)
+
+    @staticmethod
+    def backward(ctx, _g_key, _g_fields):
+        raise NotImplementedError(
+            "sort_payload='q16' is an inference-only precision mode: the "
+            "quantized record sort has no useful gradient (round/clamp are "
+            "flat a.e.). Train with sort_payload='f32'.")
+
+
+def sort_records_q16(key: torch.Tensor, fields: torch.Tensor, wp: int, hp: int):
+    """Stable single-key record sort with the 9 fields packed to 5 u32
+    words (see the q16 block comment): the sort moves the key and a source
+    index, one gather moves the (5, C) words. Returns (sorted_key, unpacked
+    sorted fields (9, C)). ``wp``/``hp`` are the padded image dims (the
+    fixed-point position range). Inference-only: differentiating through it
+    raises."""
+    if fields.shape[0] != NUM_FIELDS:
+        raise ValueError(f"q16 sort packs exactly {NUM_FIELDS} fields, "
+                         f"got {fields.shape[0]}")
+    return SortRecordsQ16.apply(key, fields, wp, hp)

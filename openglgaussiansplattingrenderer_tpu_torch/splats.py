@@ -67,18 +67,27 @@ class SplatScene:
                         color_scale=color_scale)
 
 
+def inference_config(cfg: RenderConfig) -> RenderConfig:
+    """``cfg`` in the q16 inference precision mode: ``sort_payload="q16"``
+    on the packed depth key (see ``config.py``)."""
+    return dataclasses.replace(cfg, sort_payload="q16", depth_key="packed")
+
+
 class Splats:
     """Reference-API facade: path + resolution in, rendered frames out.
     Parameters and the covariance precompute live on ``device``."""
 
     def __init__(self, file_path: str, width: int, height: int,
                  cfg: Optional[RenderConfig] = None, *,
-                 device: torch.device | str, inference: bool = False):
-        if inference:
-            raise NotImplementedError(
-                "inference=True (the q16 record sort) is not ported yet "
-                "(ROADMAP.md, modules to port: q16 inference mode)")
+                 device: torch.device | str = "cuda", inference: bool = False):
+        """``inference=True`` switches the render config to the q16
+        inference precision mode (``inference_config``): image error well
+        inside the reference's own 0.01 CPU-vs-GPU tolerance; rendering
+        only -- gradients through such a frame raise. Composes with an
+        explicit ``cfg``."""
         self.cfg = cfg or RenderConfig()
+        if inference:
+            self.cfg = inference_config(self.cfg)
         self.device = torch.device(device)
         self.scene = SplatScene.from_ply(file_path, self.cfg.color_scale)
         self.width = int(width)

@@ -322,7 +322,7 @@ def test_duplicated_splat_sums_its_records_and_culled_records_get_zero():
     cum = ks.cumsum(prep["counts"])
     rec_f, rec_t, rec_d = kr.expand(fields, *table[1:], cum,
                                     **fastpath.expand_kwargs(150, w, h, cfg))
-    sf, bounds = fastpath.sort_records(rec_f, rec_t, rec_d, cfg)
+    sf, bounds = fastpath.sort_records(rec_f, rec_t, rec_d, w, h, cfg)
     tiled, _, _ = fastpath.composite_sorted(
         sf, bounds, num_tiles=cfg.num_tiles,
         tile_ids=torch.arange(cfg.num_tiles, dtype=torch.int32), width=w,
@@ -403,13 +403,12 @@ def test_backward_wrappers_run_plain_on_cpu_and_count_no_launch():
         kr.segsum(rec, torch.zeros(3, dtype=torch.int32))
 
 
-def test_header_edit_changes_the_build_digest(tmp_path, monkeypatch):
+def test_header_edit_changes_the_build_digest(tmp_path):
     from openglgaussiansplattingrenderer_tpu_torch.ops.kernels import build
 
     assert any(h.name == "composite_common.cuh" for h in build.headers())
     (tmp_path / "a.cu").write_text("// kernel\n")
     (tmp_path / "a.cuh").write_text("// header 1\n")
-    monkeypatch.setattr(build, "CSRC", tmp_path)
-    first = build._digest()
+    first = build.digest(tmp_path)
     (tmp_path / "a.cuh").write_text("// header 2\n")
-    assert build._digest() != first
+    assert build.digest(tmp_path) != first

@@ -9,7 +9,9 @@ card run them with
 They cover what ``chip_smoke.py``'s flagship shapes do not: every
 pixels-per-thread variant of the compositor, pixels past the tile, empty
 tiles, a batch above the default 48 KB of shared memory, overflow in the
-segment sum, run-to-run equality, and training on the card.
+segment sum, run-to-run equality, training on the card, the radix-sort
+kernels at ragged sizes and both digit widths, the single-key sort paths
+of the frame, and the two probe kernels.
 """
 
 import dataclasses
@@ -22,7 +24,9 @@ import openglgaussiansplattingrenderer_tpu_torch as port
 from openglgaussiansplattingrenderer_tpu_torch import convert
 from openglgaussiansplattingrenderer_tpu_torch.io import ply as ply_io
 from openglgaussiansplattingrenderer_tpu_torch.ops.kernels import composite as kc
+from openglgaussiansplattingrenderer_tpu_torch.ops.kernels import radix_sort as rx
 from openglgaussiansplattingrenderer_tpu_torch.ops.kernels import records as kr
+from openglgaussiansplattingrenderer_tpu_torch.probes import bucketer_probe, cache_key_probe
 from openglgaussiansplattingrenderer_tpu_torch.render import render_arrays, render_stats
 from openglgaussiansplattingrenderer_tpu_torch.train import trainer
 
@@ -159,3 +163,121 @@ def test_fit_scene_resumes_bit_for_bit_on_the_card(card, tmp_path):
                                    resume=mid)
     for k in ref:
         assert torch.equal(ref[k], resumed[k]), f"resume diverged on {k}"
+
+
+def _u32_keys(n, seed, hi=2 ** 32):
+    keys = np.random.default_rng(seed).integers(0, hi, n, dtype=np.uint32)
+    return torch.from_numpy(keys.view(np.int32))
+
+
+@pytest.mark.parametrize("bits", [4, 8])
+@pytest.mark.parametrize("n,nv", [(1, 1), (4096, 0), (5000, 3), (300_001, 9)])
+def test_radix_kernels_match_plain(card, bits, n, nv):
+    # every pass of a 32-bit sort: counts and placement equal the plain
+    # versions exactly, ragged last chunk included
+    k = _u32_keys(n, n + bits).to(card)
+    v = torch.arange(nv * n, dtype=torch.int32, device=card).view(nv, n)
+    h0, s0 = rx.radix_hist.launches, rx.radix_scatter.launches
+    for p in range(32 // bits):
+        counts = rx.radix_hist(k, p * bits, bits)
+        assert torch.equal(counts, rx.radix_hist_plain(k, p * bits, bits))
+        offs = rx._prefix_offsets(counts)
+        got = rx.radix_scatter(k, v, offs, p * bits, bits)
+        ref = rx.radix_scatter_plain(k, v, offs, p * bits, bits)
+        assert torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1])
+        k, v = got
+    torch.cuda.synchronize()
+    assert (rx.radix_hist.launches, rx.radix_scatter.launches) == (
+        h0 + 32 // bits, s0 + 32 // bits)
+    assert bool((kr.u32_values(k).diff() >= 0).all())
+
+
+@pytest.mark.parametrize("bits", [4, 8])
+def test_radix_sort_matches_torch_sort_on_the_card(card, bits):
+    n = 1_234_567
+    keys = _u32_keys(n, 5)
+    keys[:4] = torch.tensor([-1, 0, -1, -2], dtype=torch.int32)   # 0xFFFFFFFF ...
+    keys[n // 2:n // 2 + 50_000] = 77                             # a long tie
+    keys = keys.to(card)
+    idx = torch.arange(n, dtype=torch.int32, device=card)
+    payload = torch.randn(n, generator=torch.Generator().manual_seed(1)).to(card)
+    sk, (si, sp) = rx.radix_sort(keys, (idx, payload), 32, bits)
+    rk, ri = torch.sort(kr.u32_values(keys), stable=True)
+    assert torch.equal(kr.u32_values(sk), rk)
+    assert torch.equal(si.to(torch.int64), ri)
+    assert torch.equal(sp, payload[ri])
+    again = rx.radix_sort(keys, (idx, payload), 32, bits)
+    assert torch.equal(again[0], sk) and torch.equal(again[1][0], si)
+    # a tile-only key: two passes of 8 bits, three of 4
+    tiles = torch.randint(0, 513, (n,), generator=torch.Generator().manual_seed(2),
+                          dtype=torch.int32).to(card)
+    st, (ti,) = rx.radix_sort(tiles, (idx,), 10, bits)
+    rt, rti = torch.sort(tiles, stable=True)
+    assert torch.equal(st, rt) and torch.equal(ti.to(torch.int64), rti)
+
+
+SINGLE_KEY = {
+    "packed+radix": dict(depth_key="packed", record_sort="radix"),
+    "hoisted": dict(hoist_depth_sort=True),
+    "hoisted+radix": dict(hoist_depth_sort=True, record_sort="radix"),
+}
+
+
+@pytest.mark.parametrize("name", list(SINGLE_KEY))
+def test_single_key_sort_frames_card_vs_cpu(card, name):
+    base = dict(chunk=64, dup_capacity_factor=24.0)
+    cfg = port.RenderConfig(**base, **SINGLE_KEY[name])
+    like = port.RenderConfig(**base, **{k: v for k, v in SINGLE_KEY[name].items()
+                                        if k != "record_sort"})
+    _, on_card, args = _small(card)
+    _, on_cpu, _ = _small("cpu")
+    h0 = rx.radix_hist.launches
+    with torch.no_grad():
+        img, stats = render_arrays(on_card, *args, cfg)
+        used = rx.radix_hist.launches - h0
+        img_like, _ = render_arrays(on_card, *args, like)
+        img_cpu, stats_cpu = render_arrays(on_cpu, *args, cfg)
+    assert used == (0 if cfg.record_sort == "lax" else 4 if name.startswith("packed") else 2)
+    assert torch.equal(img, img_like)            # the engine does not show
+    assert float((img.cpu() - img_cpu).abs().max()) <= 1e-4
+    assert all(stats[k].item() == stats_cpu[k].item() for k in stats_cpu)
+    g_card, g_cpu = _grads(on_card, args, cfg), _grads(on_cpu, args, cfg)
+    for k, want in g_cpu.items():
+        err = float((g_card[k].cpu() - want).abs().max() / want.abs().max())
+        assert err <= 5e-3, (k, err)
+
+
+def test_q16_frame_card_vs_cpu_and_its_backward_raises(card):
+    cfg = port.RenderConfig(chunk=64, dup_capacity_factor=24.0, depth_key="packed",
+                            sort_payload="q16")
+    _, on_card, args = _small(card)
+    _, on_cpu, _ = _small("cpu")
+    with torch.no_grad():
+        img, _ = render_arrays(on_card, *args, cfg)
+        img_cpu, _ = render_arrays(on_cpu, *args, cfg)
+    assert float((img.cpu() - img_cpu).abs().max()) <= 1e-4
+    with pytest.raises(NotImplementedError, match="inference-only"):
+        _grads(on_card, args, cfg)
+
+
+@pytest.mark.parametrize("k", [1, 16, 32, 64])
+def test_bucketer_level_matches_plain(card, k):
+    rec = bucketer_probe.make_records(512 * 40 + 100, card, seed=k)
+    rec[bucketer_probe.TILE_ROW, 512:1024] = 3.0          # one bucket, 512 deep
+    rec[bucketer_probe.TILE_ROW, 1500:1510] = 512.0       # no bucket
+    rec[bucketer_probe.TILE_ROW, 1510:1520] = -1.0
+    before = bucketer_probe.bucketer_level.launches
+    got = bucketer_probe.bucketer_level(rec, k)
+    assert bucketer_probe.bucketer_level.launches == before + 1
+    assert got.shape == (40, 16, k * 128)
+    assert torch.equal(got, bucketer_probe.bucketer_level_plain(rec, k))
+    assert torch.equal(got, bucketer_probe.bucketer_level(rec, k))
+
+
+@pytest.mark.parametrize("shape", [(0,), (1,), (8, 128), (1_000_003,)])
+def test_probe_affine_matches_plain(card, shape):
+    x = torch.randn(shape, generator=torch.Generator().manual_seed(3)).to(card)
+    before = cache_key_probe.probe_affine.launches
+    got = cache_key_probe.probe_affine(x)
+    assert cache_key_probe.probe_affine.launches == before + (x.numel() > 0)
+    assert torch.equal(got, cache_key_probe.probe_affine_plain(x))

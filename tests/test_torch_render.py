@@ -129,8 +129,9 @@ def test_splats_facade_renders_a_ply(tmp_path):
     assert s.last_stats["overflow"] == 0
     s.display(str(tmp_path / "out.png"))
     assert (tmp_path / "out.png").stat().st_size > 0
-    with pytest.raises(NotImplementedError):
-        port.Splats(path, 128, 128, cfg, device="cpu", inference=True)
+    # inference=True is the q16 configuration (tests/test_torch_q16.py)
+    fast = port.Splats(path, 128, 128, cfg, device="cpu", inference=True)
+    assert fast.cfg.sort_payload == "q16" and fast.cfg.depth_key == "packed"
 
 
 def test_ply_helpers_match_jax_bit_for_bit(tmp_path):
@@ -184,18 +185,123 @@ def test_autotune_and_quantize_capacity_match_jax():
     assert got.capacity_records == want.capacity_records
 
 
-@pytest.mark.parametrize("opts", [
-    dict(use_pallas=False), dict(hoist_depth_sort=True),
-    dict(record_sort="radix", depth_key="packed"),
-    dict(sort_payload="q16", depth_key="packed")])
-def test_unported_modes_raise(opts):
+@pytest.mark.parametrize("opts,error", [
+    # the oracle pipeline is not ported; the other three do not compose, and
+    # are refused with the JAX package's ValueErrors
+    pytest.param(dict(use_pallas=False), NotImplementedError, id="opts0"),
+    pytest.param(dict(record_sort="radix"), ValueError, id="opts1"),
+    pytest.param(dict(record_sort="radix", depth_key="reference"), ValueError,
+                 id="opts2"),
+    pytest.param(dict(sort_payload="q16", depth_key="packed",
+                      hoist_depth_sort=True), ValueError, id="opts3")])
+def test_unported_modes_raise(opts, error):
     scene = {k: v for k, v in port_ply.single_splat_scene().items()
              if k != "sh_rest"}
     a = camera_args(port.Camera(0.0, 0.0, -3.0, width=64, height=64))
-    with pytest.raises(NotImplementedError):
-        render_arrays(params_from_numpy(scene, "cpu"), a["view"], a["vp"],
-                      a["focal_x"], a["focal_y"], a["tan_fovx"], a["tan_fovy"],
-                      64, 64, port.RenderConfig(**opts))
+    args = (params_from_numpy(scene, "cpu"), a["view"], a["vp"], a["focal_x"],
+            a["focal_y"], a["tan_fovx"], a["tan_fovy"], 64, 64)
+    with pytest.raises(error):
+        render_arrays(*args, port.RenderConfig(**opts))
+    if error is ValueError:
+        # the JAX package refuses the same configuration the same way
+        with pytest.raises(ValueError):
+            jax_render({k: jnp.asarray(v) for k, v in scene.items()}, *args[1:],
+                       JaxConfig(**opts))
+
+
+SORT_SCENE = dict(grid_x=2, grid_y=2, chunk=128, capacity_records=2048)
+SINGLE_KEY = {
+    # name -> (the port's options, the JAX options of the frame it must equal)
+    "hoisted": (dict(hoist_depth_sort=True), dict(hoist_depth_sort=True)),
+    "hoisted+radix": (dict(hoist_depth_sort=True, record_sort="radix"),
+                      dict(hoist_depth_sort=True)),
+    # the JAX package's own slow test proves its radix frame bit-identical to
+    # its lax.sort frame; its interpret-mode radix render is too slow here
+    "packed+radix": (dict(depth_key="packed", record_sort="radix"),
+                     dict(depth_key="packed")),
+}
+
+
+def _sort_scene():
+    """The 600-splat 64x64 scene of tests/test_radix_sort.py."""
+    scene = {k: v for k, v in jax_ply.make_synthetic_scene(
+        600, seed=11, extent=2.0).items() if k != "sh_rest"}
+    a = jax_camera_args(JaxCamera(0.0, 0.0, -6.0, width=64, height=64))
+    return scene, (a["view"], a["vp"], a["focal_x"], a["focal_y"], a["tan_fovx"],
+                   a["tan_fovy"], 64, 64)
+
+
+def _jax_frame(scene, args, **opts):
+    img, stats = jax_render({k: jnp.asarray(v) for k, v in scene.items()},
+                            jnp.asarray(args[0]), jnp.asarray(args[1]), *args[2:],
+                            JaxConfig(**opts))
+    return np.asarray(img), {k: np.asarray(v).item() for k, v in stats.items()}
+
+
+@pytest.mark.parametrize("name", list(SINGLE_KEY))
+def test_single_key_sort_frames_match_jax(name):
+    # image within 1e-4 (the ARCHITECTURE.md image contract), stats equal
+    port_opts, jax_opts = SINGLE_KEY[name]
+    scene, args = _sort_scene()
+    img_j, st_j = _jax_frame(scene, args, **SORT_SCENE, **jax_opts)
+    img_t, st_t = render_arrays(params_from_numpy(scene, "cpu"), *args,
+                                port.RenderConfig(**SORT_SCENE, **port_opts))
+    assert img_j[..., 3].max() > 0.5 and st_j["overflow"] == 0
+    np.testing.assert_allclose(img_t.numpy(), img_j, atol=1e-4)
+    assert {k: v.item() for k, v in st_t.items()} == st_j
+    # the sort engine does not show in the port's frame: both are stable
+    img_lax, _ = render_arrays(
+        params_from_numpy(scene, "cpu"), *args, port.RenderConfig(
+            **SORT_SCENE, **{k: v for k, v in port_opts.items() if k != "record_sort"}))
+    assert torch.equal(img_t, img_lax)
+
+
+@pytest.mark.parametrize("record_sort", ["lax", "radix"])
+def test_hoisted_overflow_drops_the_farthest_records(record_sort):
+    # a capacity below the record count: the hoisted frame loses the farthest
+    # splats' records, as in JAX, where the default path loses the last in
+    # splat order
+    scene, args = _sort_scene()
+    scene["scales"] = scene["scales"] * 2.0          # 5,023 records at 16x16 tiles
+    small = dict(chunk=128, capacity_records=4096)
+    img_j, st_j = _jax_frame(scene, args, **small, hoist_depth_sort=True)
+    params = params_from_numpy(scene, "cpu")
+    img_t, st_t = render_arrays(params, *args, port.RenderConfig(
+        **small, hoist_depth_sort=True, record_sort=record_sort))
+    assert st_j["overflow"] > 0
+    np.testing.assert_allclose(img_t.numpy(), img_j, atol=1e-4)
+    assert {k: v.item() for k, v in st_t.items()} == st_j
+    img_p, st_p = render_arrays(params, *args, port.RenderConfig(**small))
+    assert st_p["overflow"].item() == st_j["overflow"]
+    assert float((img_p - img_t).abs().max()) > 1e-2
+
+
+@pytest.mark.parametrize("record_sort", ["lax", "radix"])
+def test_hoisted_frame_gradients_match_jax_grad(record_sort):
+    # every parameter tensor within 5e-3 of its largest gradient (the
+    # ARCHITECTURE.md gradient contract); the N-sized depth sort un-permutes
+    # the table's cotangents
+    import jax
+
+    scene, args = _sort_scene()
+    opts = dict(SORT_SCENE, hoist_depth_sort=True)
+
+    def loss_j(p):
+        img, _ = jax_render(p, jnp.asarray(args[0]), jnp.asarray(args[1]),
+                            *args[2:], JaxConfig(**opts))
+        return jnp.mean((img[..., :3] - 0.2) ** 2) + 0.1 * jnp.mean(img[..., 3])
+
+    want = jax.grad(loss_j)({k: jnp.asarray(v) for k, v in scene.items()})
+    p = {k: v.requires_grad_(True)
+         for k, v in params_from_numpy(scene, "cpu").items()}
+    img, _ = render_arrays(p, *args, port.RenderConfig(**opts, record_sort=record_sort))
+    loss = ((img[..., :3] - 0.2) ** 2).mean() + 0.1 * img[..., 3].mean()
+    got = dict(zip(p, torch.autograd.grad(loss, list(p.values()))))
+    for k, w in want.items():
+        w = np.asarray(w)
+        scale = np.abs(w).max()
+        assert scale > 0, k
+        assert np.abs(got[k].numpy() - w).max() <= 5e-3 * scale, k
 
 
 def test_port_never_imports_jax():
@@ -204,7 +310,10 @@ def test_port_never_imports_jax():
             "openglgaussiansplattingrenderer_tpu_torch.ops.kernels.build, "
             "openglgaussiansplattingrenderer_tpu_torch.train.trainer, "
             "openglgaussiansplattingrenderer_tpu_torch.train.losses, "
-            "openglgaussiansplattingrenderer_tpu_torch.convert; "
+            "openglgaussiansplattingrenderer_tpu_torch.convert, "
+            "openglgaussiansplattingrenderer_tpu_torch.ops.kernels.radix_sort, "
+            "openglgaussiansplattingrenderer_tpu_torch.probes.bucketer_probe, "
+            "openglgaussiansplattingrenderer_tpu_torch.probes.cache_key_probe; "
             "assert 'jax' not in sys.modules, 'jax imported'")
     repo = str(PKG_DIR.parent)
     env = {**os.environ, "PYTHONPATH": repo}
