@@ -11,13 +11,19 @@ csrc`` (nvcc, at first use), then:
    card and times both (CUDA events, median), beside the least time the
    card could take for the same work (``bound_ms``) and, where one PyTorch
    call computes the same function, that call's time (``library_ms``):
-   prefix sum and expansion on the flagship frame, bit-equal; the radix
-   sort's histogram and scatter on the frame's own 6.29M packed keys, every
-   pass exact, and the whole sort against ``torch.sort(stable=True)``
+   prefix sum and expansion on the flagship frame, bit-equal; the prefix
+   sum again at 67,108,864 values, where the device and not the host's
+   dispatch sets the time, and on one value, as the host's cost of a launch;
+   the radix sort's histogram and scatter on the frame's own 6.29M packed
+   keys, every pass exact, the scatter's stored bytes over its time a pass,
+   the offset table between them (one launch of the prefix-sum kernel)
+   exact against its plain version, and the whole sort against
+   ``torch.sort(stable=True)``
    element for element; the bucketing-level probe kernel exact on 64
    chunks and timed through its probe at 6,291,456 records, and the
-   build-cache probe with its kernel (these two run last, behind every time
-   of the main paths); segment sum
+   build-cache probe with its kernel, timed at (8, 128) and at 1,000,003
+   values (these two run last, behind every time of the main paths);
+   segment sum
    on the flagship frame's shapes with a seeded cotangent; compositor
    forward (image max abs diff <= 5e-3 with <= 10 px above 1e-3) and
    backward (per row within a stated share of the row's largest gradient,
@@ -81,6 +87,10 @@ GRAD_REL_TOL = 5e-3                # card vs CPU path, per parameter tensor
 # the JAX package's q16 test on its 512-splat 64x64 scene
 Q16_FLAG_TOL, Q16_SMALL_TOL = 1e-2, 2e-3
 BUCKET_C, BUCKET_K = 6 * 1024 * 1024, 32   # the bucketing probe's own size
+# a size at which the device and not the host's dispatch sets a small
+# kernel's time: 256 MB in, 256 MB out for the prefix sum
+LARGE_SCAN = 64 * 1024 * 1024
+LARGE_AFFINE = 1_000_003
 
 # The card's published peaks (NVIDIA H100 SXM data sheet): device memory
 # rate and float32 rate outside the tensor cores (a multiply-add counts 2).
@@ -134,6 +144,43 @@ def cuda_ms(fn, reps: int = REPS, warmup: int = 2) -> float:
         end.record()
         end.synchronize()
         times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def cuda_ms_running(fn, calls: int = 40, reps: int = REPS) -> float:
+    """Median device time of one call of ``fn`` in ms when ``calls`` of them
+    are enqueued back to back between two CUDA events: the host's dispatch
+    hides behind the device's work unless it is the longer of the two."""
+    import torch
+
+    fn()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(calls):
+            fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / calls)
+    return statistics.median(times)
+
+
+def host_us(fn, reps: int = 200) -> float:
+    """Median host time of one call of ``fn`` in microseconds, the device
+    not waited for: what the caller's thread pays to enqueue it."""
+    import torch
+
+    for _ in range(10):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        times.append((time.perf_counter() - t0) * 1e6)
+    torch.cuda.synchronize()
     return statistics.median(times)
 
 
@@ -285,11 +332,40 @@ def check_scan_and_expand(frame, results):
     err = float((cum - cum_p).abs().max())
     ms, pms = cuda_ms(lambda: ks.cumsum(counts)), cuda_ms(lambda: ks.cumsum_plain(counts))
     lms = cuda_ms(lambda: torch.cumsum(counts, 0, dtype=torch.int32))
+    run_ms = cuda_ms_running(lambda: ks.cumsum(counts))
+    run_lms = cuda_ms_running(lambda: torch.cumsum(counts, 0, dtype=torch.int32))
+    # the host's cost of a launch: the wrapper on one value, where the device
+    # has nothing to do. Rows under ~0.05 ms are to be read against it.
+    one = counts[:1].contiguous()
+    one_ms = cuda_ms(lambda: ks.cumsum(one), reps=21)
+    one_lib_ms = cuda_ms(lambda: torch.cumsum(one, 0, dtype=torch.int32), reps=21)
+    one_us = host_us(lambda: ks.cumsum(one))
+    one_lib_us = host_us(lambda: torch.cumsum(one, 0, dtype=torch.int32))
+    log(f"[2] host cost of a launch, one value: cumsum wrapper {one_us:.1f} us on "
+        f"the host's clock, {one_ms:.4f} ms between CUDA events; torch.cumsum "
+        f"{one_lib_us:.1f} us, {one_lib_ms:.4f} ms")
+    # and at a size the device sets the time of
+    gen = torch.Generator(device=counts.device).manual_seed(11)
+    big = torch.randint(0, 100, (LARGE_SCAN,), generator=gen, device=counts.device,
+                        dtype=torch.int32)
+    assert torch.equal(ks.cumsum(big), torch.cumsum(big, 0, dtype=torch.int32)), (
+        "cumsum kernel differs from torch.cumsum at the large size")
+    large = dict(n=LARGE_SCAN, ms=cuda_ms(lambda: ks.cumsum(big)),
+                 library_ms=cuda_ms(lambda: torch.cumsum(big, 0, dtype=torch.int32)),
+                 **bound(2 * 4 * LARGE_SCAN, LARGE_SCAN))
+    del big
     # each count read once, each sum written once; one add a value
     results["cumsum"] = dict(max_abs_err=err, ms=ms, plain_ms=pms, library_ms=lms,
-                             **bound(2 * 4 * n, n))
+                             **bound(2 * 4 * n, n), large=large,
+                             running_ms=run_ms, library_running_ms=run_lms,
+                             one_value_ms=one_ms, one_value_host_us=one_us,
+                             library_one_value_ms=one_lib_ms,
+                             library_one_value_host_us=one_lib_us)
     log(f"[2] cumsum  n={n} exact; kernel {ms:.4f} ms, plain {pms:.4f} ms, "
-        f"torch.cumsum {lms:.4f} ms, bound {results['cumsum']['bound_ms']:.4f} ms")
+        f"torch.cumsum {lms:.4f} ms, bound {results['cumsum']['bound_ms']:.4f} ms; "
+        f"40 calls back to back {run_ms:.4f} ms a call, torch.cumsum {run_lms:.4f}; "
+        f"n={LARGE_SCAN} exact; kernel {large['ms']:.4f} ms, torch.cumsum "
+        f"{large['library_ms']:.4f} ms, bound {large['bound_ms']:.4f} ms")
 
     got = kr.expand(*table, cum, **kw)
     ref = kr.expand_plain(*table, cum, **kw)
@@ -357,16 +433,19 @@ def check_radix(frame, results):
             f"radix_scatter {what}: differs from the plain version")
 
     k, v = keys, idx[None, :].contiguous()
-    hist_ms, scat_ms = [], []
+    hist_ms, scat_ms, offs_ms = [], [], []
     for p in range(passes):
         shift = p * bits
         cnt = rx.radix_hist(k, shift)
         assert torch.equal(cnt, rx.radix_hist_plain(k, shift)), (
             f"radix_hist pass {p}: differs from the plain version")
         offs = rx._prefix_offsets(cnt)
+        assert torch.equal(offs, rx._prefix_offsets_plain(cnt)), (
+            f"_prefix_offsets pass {p}: differs from the plain version")
         got = rx.radix_scatter(k, v, offs, shift)
         same(got, rx.radix_scatter_plain(k, v, offs, shift), f"pass {p}")
         hist_ms.append(cuda_ms(lambda: rx.radix_hist(k, shift)))
+        offs_ms.append(cuda_ms(lambda: rx._prefix_offsets(cnt)))
         scat_ms.append(cuda_ms(lambda: rx.radix_scatter(k, v, offs, shift)))
         if p == 0:
             hist_plain = cuda_ms(lambda: rx.radix_hist_plain(k, shift))
@@ -374,6 +453,7 @@ def check_radix(frame, results):
                   + (k & ((1 << bits) - 1)))
             bincount = cuda_ms(lambda: torch.bincount(at, minlength=cnt.numel()))
             scat_plain = cuda_ms(lambda: rx.radix_scatter_plain(k, v, offs, shift))
+            offs_plain = cuda_ms(lambda: rx._prefix_offsets_plain(cnt))
             # nine payload rows, and the 4-bit digit of the JAX package
             gen = torch.Generator(device=dev).manual_seed(8)
             v9 = torch.randn((9, c), generator=gen, device=dev).view(torch.int32)
@@ -384,6 +464,8 @@ def check_radix(frame, results):
             cnt4 = rx.radix_hist(k, 0, 4)
             assert torch.equal(cnt4, rx.radix_hist_plain(k, 0, 4)), "radix_hist, 4 bits"
             offs4 = rx._prefix_offsets(cnt4)
+            assert torch.equal(offs4, rx._prefix_offsets_plain(cnt4)), (
+                "_prefix_offsets, 4 bits")
             same(rx.radix_scatter(k, v, offs4, 0, 4),
                  rx.radix_scatter_plain(k, v, offs4, 0, 4), "4 bits")
         k, v = got
@@ -412,9 +494,18 @@ def check_radix(frame, results):
     results["radix_hist"] = dict(
         max_abs_err=0.0, ms=statistics.mean(hist_ms), pass_ms=hist_ms,
         plain_ms=hist_plain, library_ms=bincount, **bound(4 * c + table_bytes, c))
+    # what a pass stores, key and payload row, over its time: near the
+    # memory rate only if runs of equal digits leave as whole sectors
+    stored = 4 * c * (1 + v.shape[0])
+    scat_gbs = [stored / (t * 1e-3) / 1e9 for t in scat_ms]
+    results["cumsum"]["offset_table"] = dict(
+        shape=[n_chunks, 1 << bits], ms=statistics.mean(offs_ms), pass_ms=offs_ms,
+        plain_ms=offs_plain, **bound(2 * table_bytes, n_chunks << bits))
     results["radix_scatter"] = dict(
         max_abs_err=0.0, ms=statistics.mean(scat_ms), pass_ms=scat_ms,
-        nine_rows_ms=nine_ms, plain_ms=scat_plain, library_ms=sort64,
+        pass_stored_gb_per_s=scat_gbs, nine_rows_ms=nine_ms,
+        nine_rows_stored_gb_per_s=40 * c / (nine_ms * 1e-3) / 1e9,
+        plain_ms=scat_plain, library_ms=sort64,
         library_is="torch.sort(stable=True) of the int64 key: all passes at once",
         radix_sort_ms=whole, radix_sort_tile_key_ms=whole_tile,
         torch_sort_int32_tile_key_ms=sort32, **bound(16 * c + table_bytes, 3 * c))
@@ -425,8 +516,16 @@ def check_radix(frame, results):
         f"{results['radix_hist']['bound_ms']:.4f} ms")
     log(f"[2] radix_scatter one payload row: every pass exact (and nine rows, and "
         f"4 bits, once); kernel ms a pass " + " ".join(f"{t:.4f}" for t in scat_ms)
-        + f", with nine rows {nine_ms:.4f} ms, plain {scat_plain:.4f} ms, bound "
+        + "; stored GB/s a pass " + " ".join(f"{g:.1f}" for g in scat_gbs)
+        + f"; with nine rows {nine_ms:.4f} ms "
+        f"({results['radix_scatter']['nine_rows_stored_gb_per_s']:.1f} GB/s stored), "
+        f"plain {scat_plain:.4f} ms, bound "
         f"{results['radix_scatter']['bound_ms']:.4f} ms")
+    log(f"[2] _prefix_offsets ({n_chunks}, {1 << bits}) -> ({n_chunks + 1}, "
+        f"{1 << bits}), one launch of the prefix-sum kernel, every pass exact "
+        f"(and 4 bits once); ms a pass " + " ".join(f"{t:.4f}" for t in offs_ms)
+        + f", plain {offs_plain:.4f} ms, bound "
+        f"{results['cumsum']['offset_table']['bound_ms']:.4f} ms")
     log(f"[2] radix_sort of the {c} packed keys with the source index, equal to "
         f"torch.sort(stable=True) element for element: {whole:.4f} ms ({passes} "
         f"passes) against torch.sort on the int64 key {sort64:.4f} ms; of the "
@@ -477,13 +576,19 @@ def check_probes(results):
     one = torch.ones((), device=dev)
     ms, pms = cuda_ms(lambda: cp.probe_affine(x)), cuda_ms(lambda: cp.probe_affine_plain(x))
     lms = cuda_ms(lambda: torch.add(one, x, alpha=2.0))
+    big = torch.randn(LARGE_AFFINE, generator=gen, device=dev)
+    large = dict(n=LARGE_AFFINE, ms=cuda_ms(lambda: cp.probe_affine(big)),
+                 library_ms=cuda_ms(lambda: torch.add(one, big, alpha=2.0)),
+                 **bound(8 * LARGE_AFFINE, 2 * LARGE_AFFINE))
     results["probe_affine"] = dict(max_abs_err=0.0, ms=ms, plain_ms=pms, library_ms=lms,
-                                   **bound(8 * x.numel(), 2 * x.numel()))
+                                   **bound(8 * x.numel(), 2 * x.numel()), large=large)
     reset_launches()
     cache = cp.run()
     launches["probe_affine"] = read_launches()["probe_affine"]
     log(f"[2] probe_affine exact at (8, 128) and 1,000,003 values; kernel {ms:.4f} "
-        f"ms, plain {pms:.4f} ms, torch.add(alpha=2) {lms:.4f} ms; build-cache "
+        f"ms, plain {pms:.4f} ms, torch.add(alpha=2) {lms:.4f} ms; at "
+        f"{LARGE_AFFINE} values kernel {large['ms']:.4f} ms, torch.add "
+        f"{large['library_ms']:.4f} ms, bound {large['bound_ms']:.4f} ms; build-cache "
         f"probe {json.dumps(cache)}")
     return launches
 

@@ -10,7 +10,11 @@
 //           window of the output, correct only on a sequential grid).
 // Bound on the card: bytes. The histogram reads 4 B a key; the scatter
 //           reads and writes 4 B a key and 4 B a key for each payload row.
-//           The arithmetic is a shift, a mask and a warp vote a key.
+//           The arithmetic is a shift, a mask and a warp vote a key. What
+//           the scatter pays beyond its bytes is sectors: a 4-byte store to
+//           a slot of its own costs a whole 32-byte sector, and with low,
+//           well-mixed digits a warp's 32 keys in input order fall into up
+//           to 32 different digit ranges.
 // Design:   blocks run in any order, so all order comes from the offsets
 //           table (phase 2, outside these kernels) and from a rank computed
 //           inside the block; nothing is accumulated in global memory, so
@@ -24,14 +28,34 @@
 //           Histogram: lanes with equal digits find each other with
 //           __match_any_sync; the first of them adds the group's size to
 //           the block's shared counts (integer adds in shared memory: any
-//           order gives the same sum). Scatter: (A) each warp counts its
-//           own 512 keys into its own row of shared memory, (B) one thread
-//           a digit turns the rows into running bases, in warp order,
-//           starting from the chunk's global offset of that digit, (C) each
-//           warp walks its keys again: a key's slot is its warp's base for
-//           the digit plus the number of lower lanes with the same digit,
-//           and the group's first lane then moves the base on. Keys and
-//           payload rows are stored at that slot as raw 32-bit words. The
+//           order gives the same sum). Scatter: the chunk is sorted by
+//           digit inside the block first and stored afterwards. (A) a warp
+//           loads its 512 keys (16 bytes a lane, put into (round, lane)
+//           order through shared memory, where the pointer allows) and
+//           walks them once in input order: lanes with equal digits find
+//           each other by one vote a digit bit, a key's rank among the
+//           warp's keys of its digit is the warp's count of that digit so
+//           far plus the lower lanes of its group, and the group's first
+//           lane then moves the count on; (B) one thread a digit adds
+//           the eight warps' counts, a block scan over the digits gives
+//           each digit's first position in the sorted chunk, and the counts
+//           become each warp's first position for the digit; the chunk's
+//           global offset of the digit less that first position is kept a
+//           digit; (C) every key is written to a shared-memory buffer at
+//           its position in the sorted chunk. Then thread t takes entries
+//           t, t + 256, ... of the buffer, recomputes the digit, and
+//           stores to position + (offset - first position): neighbouring
+//           threads hold neighbouring keys of one digit and store to
+//           neighbouring addresses, so a run of equal digits goes out as
+//           whole sectors (16 keys a digit on average at 8 bits, 256 at 4).
+//           Payload rows follow through the same positions, one row at a
+//           time, alternating between two buffers so that a row costs one
+//           block barrier; both kinds of position stay in registers. The
+//           chunk stays at 4,096 keys (two 16 KB buffers, 8 KB of counts: 42
+//           KB of static shared memory): on an H100 a variant that stored
+//           the sorted chunk to consecutive addresses, the best any chunk
+//           length could do for the stores, measured hardly faster, so the
+//           longer runs of a longer chunk have little left to give. The
 //           ragged last chunk is masked in the kernel; nothing is padded.
 //           The digit width is a template parameter: 4 bits is the TPU
 //           package's plan, 8 bits halves the passes and is what the port
@@ -77,60 +101,149 @@ radix_hist(const uint32_t* __restrict__ keys, int n, int shift,
     counts[(long long)blockIdx.x * K + d] = hist[d];
 }
 
+// The live lanes of the warp whose digit equals this lane's: a vote a bit,
+// a fixed BITS votes a key. (__match_any_sync gives the same mask, but its
+// time grows with the distinct values in the warp: on mixed 8-bit digits,
+// where nearly every lane holds another value, the votes measured faster.)
+// A lane that is not live gets a mask it must not use.
+template <int BITS>
+__device__ __forceinline__ unsigned same_digit(unsigned d, bool live) {
+  unsigned peers = __ballot_sync(kFull, live);
+#pragma unroll
+  for (int b = 0; b < BITS; ++b) {
+    const bool bit = (d >> b) & 1u;
+    const unsigned has = __ballot_sync(kFull, bit);
+    peers &= bit ? has : ~has;
+  }
+  return peers;
+}
+
+// Exclusive scan of one value a thread over the block. warp_sums is kWarps
+// ints of shared memory.
+__device__ int block_excl_scan(int v, int* warp_sums) {
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  int incl = v;
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const int u = __shfl_up_sync(kFull, incl, o);
+    if (lane >= o) incl += u;
+  }
+  if (lane == 31) warp_sums[warp] = incl;
+  __syncthreads();
+  int before = 0;
+#pragma unroll
+  for (int w = 0; w < kWarps; ++w)
+    if (w < warp) before += warp_sums[w];
+  return before + incl - v;
+}
+
 template <int BITS>
 __global__ void __launch_bounds__(kThreads)
 radix_scatter(const uint32_t* __restrict__ keys, const uint32_t* __restrict__ vals,
               int nv, int n, int shift,
               const int32_t* __restrict__ offs,  // (n_chunks + 1, 2^BITS)
-              uint32_t* __restrict__ out_keys, uint32_t* __restrict__ out_vals) {
+              uint32_t* __restrict__ out_keys, uint32_t* __restrict__ out_vals,
+              int wide) {
   constexpr int K = 1 << BITS;
+  static_assert(K <= kThreads, "phase B gives a digit to a thread");
+  __shared__ __align__(16) uint32_t stage[2][kChunk];
   __shared__ int base[kWarps][K];
+  __shared__ int to_global[K];
+  __shared__ int warp_sums[kWarps];
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
   for (int j = threadIdx.x; j < kWarps * K; j += kThreads) (&base[0][0])[j] = 0;
-  __syncthreads();
 
-  const long long first = (long long)blockIdx.x * kChunk + warp * kWarpSpan + lane;
+  const long long chunk0 = (long long)blockIdx.x * kChunk;
+  const int live_n = (int)min((long long)kChunk, n - chunk0);  // keys of this chunk
+  const int mine = warp * kWarpSpan + lane;  // my round-0 key, inside the chunk
   uint32_t key[kItems];
-  // (A) this warp's digit counts
+  if (wide && live_n == kChunk) {
+    // 16 bytes a lane, then through the warp's own stretch of the buffer into
+    // (round, lane) order
+    const int4* src = reinterpret_cast<const int4*>(keys + chunk0 + warp * kWarpSpan);
+    int4* mid = reinterpret_cast<int4*>(&stage[0][warp * kWarpSpan]);
 #pragma unroll
-  for (int i = 0; i < kItems; ++i) {
-    const long long idx = first + i * 32;
-    const bool live = idx < n;
-    key[i] = live ? keys[idx] : 0u;
-    const unsigned d = live ? digit_of<BITS>(key[i], shift) : (unsigned)K;
-    const unsigned peers = __match_any_sync(kFull, d);
-    // one lane a digit writes, and no other warp touches this row
-    if (live && lane == __ffs(peers) - 1) base[warp][d] += __popc(peers);
+    for (int j = 0; j < kItems / 4; ++j) mid[j * 32 + lane] = src[j * 32 + lane];
     __syncwarp();
+#pragma unroll
+    for (int i = 0; i < kItems; ++i) key[i] = stage[0][mine + i * 32];
+  } else {
+#pragma unroll
+    for (int i = 0; i < kItems; ++i)
+      key[i] = mine + i * 32 < live_n ? keys[chunk0 + mine + i * 32] : 0u;
   }
   __syncthreads();
-  // (B) counts -> where each warp's first key of each digit goes
-  for (int d = threadIdx.x; d < K; d += kThreads) {
-    int run = offs[(long long)blockIdx.x * K + d];
-    for (int w = 0; w < kWarps; ++w) {
-      const int c = base[w][d];
-      base[w][d] = run;
-      run += c;
+
+  // (A) rank among this warp's keys of the same digit, in input order
+  int pos[kItems];
+#pragma unroll
+  for (int i = 0; i < kItems; ++i) {
+    const bool live = mine + i * 32 < live_n;
+    const unsigned d = digit_of<BITS>(key[i], shift);
+    const unsigned peers = same_digit<BITS>(d, live);
+    const int lower = __popc(peers & ((1u << lane) - 1u));
+    const int seen = live ? base[warp][d] : 0;  // the warp's count so far
+    __syncwarp();  // every lane has read the count before it moves
+    // one lane a digit writes, and no other warp touches this row
+    if (live && lower == 0) base[warp][d] = seen + __popc(peers);
+    __syncwarp();
+    pos[i] = seen + lower;
+  }
+  __syncthreads();
+
+  // (B) counts -> each warp's first position of each digit in the sorted
+  // chunk, and what takes a position of digit d to its global slot
+  {
+    const int d = threadIdx.x;
+    int total = 0;
+    if (d < K)
+      for (int w = 0; w < kWarps; ++w) total += base[w][d];
+    int run = block_excl_scan(total, warp_sums);
+    if (d < K) {
+      to_global[d] = offs[(long long)blockIdx.x * K + d] - run;
+      for (int w = 0; w < kWarps; ++w) {
+        const int c = base[w][d];
+        base[w][d] = run;
+        run += c;
+      }
     }
   }
   __syncthreads();
-  // (C) place
+
+  // (C) sort the chunk by digit in shared memory, then store it in that order
 #pragma unroll
   for (int i = 0; i < kItems; ++i) {
-    const long long idx = first + i * 32;
-    const bool live = idx < n;
-    const unsigned d = live ? digit_of<BITS>(key[i], shift) : (unsigned)K;
-    const unsigned peers = __match_any_sync(kFull, d);
-    int pos = 0;
-    if (live) pos = base[warp][d] + __popc(peers & ((1u << lane) - 1u));
-    __syncwarp();  // every lane has read its base before it moves
-    if (live && lane == __ffs(peers) - 1) base[warp][d] += __popc(peers);
-    __syncwarp();
-    if (live) {
-      out_keys[pos] = key[i];
-      for (int r = 0; r < nv; ++r)
-        out_vals[(size_t)r * n + pos] = vals[(size_t)r * n + idx];
+    if (mine + i * 32 < live_n) {
+      pos[i] += base[warp][digit_of<BITS>(key[i], shift)];
+      stage[0][pos[i]] = key[i];
+    }
+  }
+  __syncthreads();
+  int dst[kItems];
+#pragma unroll
+  for (int i = 0; i < kItems; ++i) {
+    const int p = threadIdx.x + i * kThreads;
+    if (p < live_n) {
+      const uint32_t k = stage[0][p];
+      dst[i] = p + to_global[digit_of<BITS>(k, shift)];
+      out_keys[dst[i]] = k;
+    }
+  }
+  // a row is written to the buffer the row before it is not being read from
+  for (int r = 0; r < nv; ++r) {
+    uint32_t* buf = stage[(r + 1) & 1];
+    const uint32_t* src = vals + (size_t)r * n + chunk0 + mine;
+    uint32_t* out = out_vals + (size_t)r * n;
+#pragma unroll
+    for (int i = 0; i < kItems; ++i)
+      if (mine + i * 32 < live_n) buf[pos[i]] = src[i * 32];
+    __syncthreads();
+#pragma unroll
+    for (int i = 0; i < kItems; ++i) {
+      const int p = threadIdx.x + i * kThreads;
+      if (p < live_n) out[dst[i]] = buf[p];
     }
   }
 }
@@ -176,10 +289,11 @@ extern "C" int gs_radix_scatter(const void* keys, const void* vals, int nv, int 
   const int32_t* o = static_cast<const int32_t*>(offs);
   uint32_t* ok = static_cast<uint32_t*>(out_keys);
   uint32_t* ov = static_cast<uint32_t*>(out_vals);
+  const int wide = (reinterpret_cast<uintptr_t>(keys) & 15u) == 0;  // 16-byte loads
   if (bits == 8) {
-    radix_scatter<8><<<chunks_of(n), kThreads, 0, s>>>(k, v, nv, n, shift, o, ok, ov);
+    radix_scatter<8><<<chunks_of(n), kThreads, 0, s>>>(k, v, nv, n, shift, o, ok, ov, wide);
   } else if (bits == 4) {
-    radix_scatter<4><<<chunks_of(n), kThreads, 0, s>>>(k, v, nv, n, shift, o, ok, ov);
+    radix_scatter<4><<<chunks_of(n), kThreads, 0, s>>>(k, v, nv, n, shift, o, ok, ov, wide);
   } else {
     return static_cast<int>(cudaErrorInvalidValue);
   }

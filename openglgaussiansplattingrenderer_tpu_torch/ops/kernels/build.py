@@ -37,6 +37,7 @@ _P, _I, _F, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlon
 SIGNATURES = {
     "gs_cumsum_tile": [],
     "gs_cumsum_i32": [_P, _P, _P, _I, _P],
+    "gs_prefix_offsets_i32": [_P, _P, _P, _I, _I, _L, _L, _P],
     "gs_expand": [_P, _P, _P, _P, _P, _I, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P],
     "gs_composite_max_pixels": [],
     "gs_composite_fwd": [_P, _I, _P, _P, _P, _P, _I, _I, _I, _I, _F, _F, _F, _P],
@@ -203,6 +204,13 @@ def expect(name: str, t, dtype, shape) -> None:
 
 
 def stream_ptr() -> int:
+    """The current device's current stream as an integer for ctypes. The raw
+    accessor costs a fraction of a microsecond where building a
+    ``torch.cuda.Stream`` object costs several, more than a small kernel's
+    launch; the public call stands in where a PyTorch lacks it."""
     import torch
 
+    raw = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+    if raw is not None:
+        return raw(torch.cuda.current_device())
     return torch.cuda.current_stream().cuda_stream

@@ -4,8 +4,9 @@ Counterpart of ``openglgaussiansplattingrenderer_tpu/ops/pallas/radix_sort.py``;
 the kernels are in ``csrc/radix_sort.cu``. Three phases a digit, as in the
 reference's sort library (``src/sort.cpp:139-203``): per-chunk digit counts
 (``radix_hist``), a digit-major exclusive prefix over the count table
-(``_prefix_offsets``, on the prefix-sum kernel of ``scan``), and a stable
-scatter of keys and payload rows (``radix_scatter``).
+(``_prefix_offsets``, one launch of the prefix-sum kernel of ``scan``), and a
+stable scatter of keys and payload rows (``radix_scatter``), which sorts its
+chunk by digit in shared memory and stores runs of equal digits together.
 
 Keys are u32. PyTorch has little ``uint32`` arithmetic, so they are held
 as int32 bit patterns (``torch.uint32`` tensors are accepted and viewed);
@@ -21,6 +22,7 @@ tables can be held against the JAX ones.
 
 from __future__ import annotations
 
+import functools
 from typing import Optional, Sequence, Tuple
 
 import torch
@@ -75,29 +77,38 @@ def radix_hist(keys: torch.Tensor, shift: int, bits: int = BITS) -> torch.Tensor
     return counts
 
 
-def _library():
+@functools.lru_cache(maxsize=1)
+def _library_chunk():
+    """(the kernel library, keys a block owns there), read once a process."""
     lib = build.load_library()
-    if lib.gs_radix_chunk() != CHUNK:
+    return lib, lib.gs_radix_chunk()
+
+
+def _library():
+    lib, chunk = _library_chunk()
+    if chunk != CHUNK:
         raise RuntimeError(f"radix sort: the library's chunk is "
-                           f"{lib.gs_radix_chunk()} keys, the wrapper's {CHUNK}")
+                           f"{chunk} keys, the wrapper's {CHUNK}")
     return lib
+
+
+def _prefix_offsets_plain(counts: torch.Tensor) -> torch.Tensor:
+    """The plain PyTorch version of ``_prefix_offsets``: a transpose to
+    digit-major order, one inclusive ``cumsum``, and the closing row
+    concatenated."""
+    return scan.table_offsets_plain(counts)
 
 
 def _prefix_offsets(counts: torch.Tensor) -> torch.Tensor:
     """(n_chunks, K) counts -> (n_chunks + 1, K) int32 placement bases.
 
     P[c, k] = (keys with digit < k anywhere) + (digit-k keys in chunks
-    < c); row n_chunks closes each digit's range. The digit-major prefix
-    sum is ``scan.cumsum``, the prefix-sum kernel.
+    < c); row n_chunks closes each digit's range. On CUDA tensors this is
+    one launch of the prefix-sum kernel's table entry point
+    (``scan.table_offsets``), which reads the table digit-major through
+    its strides.
     """
-    n_chunks, k = counts.shape
-    if n_chunks == 0:
-        return counts.new_zeros((1, k))
-    flat = counts.t().contiguous().view(-1)            # digit-major
-    incl = scan.cumsum(flat)
-    body = (incl - flat).view(k, n_chunks).t()
-    last = incl.view(k, n_chunks)[:, -1:].t()          # digit range ends
-    return torch.cat([body, last], dim=0).contiguous()
+    return scan.table_offsets(counts)
 
 
 def radix_scatter_plain(keys: torch.Tensor, values: torch.Tensor,

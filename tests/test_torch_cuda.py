@@ -9,9 +9,11 @@ card run them with
 They cover what ``chip_smoke.py``'s flagship shapes do not: every
 pixels-per-thread variant of the compositor, pixels past the tile, empty
 tiles, a batch above the default 48 KB of shared memory, overflow in the
-segment sum, run-to-run equality, training on the card, the radix-sort
-kernels at ragged sizes and both digit widths, the single-key sort paths
-of the frame, and the two probe kernels.
+segment sum, run-to-run equality, training on the card, the single-pass
+prefix sum at tile edges, on unaligned views, on wrapping sums and 200
+launches running, the radix sort's offset table, the radix-sort kernels at
+ragged sizes, on sorted, constant and one-key-a-digit inputs and both digit
+widths, the single-key sort paths of the frame, and the two probe kernels.
 """
 
 import dataclasses
@@ -26,6 +28,7 @@ from openglgaussiansplattingrenderer_tpu_torch.io import ply as ply_io
 from openglgaussiansplattingrenderer_tpu_torch.ops.kernels import composite as kc
 from openglgaussiansplattingrenderer_tpu_torch.ops.kernels import radix_sort as rx
 from openglgaussiansplattingrenderer_tpu_torch.ops.kernels import records as kr
+from openglgaussiansplattingrenderer_tpu_torch.ops.kernels import scan as ks
 from openglgaussiansplattingrenderer_tpu_torch.probes import bucketer_probe, cache_key_probe
 from openglgaussiansplattingrenderer_tpu_torch.render import render_arrays, render_stats
 from openglgaussiansplattingrenderer_tpu_torch.train import trainer
@@ -165,6 +168,72 @@ def test_fit_scene_resumes_bit_for_bit_on_the_card(card, tmp_path):
         assert torch.equal(ref[k], resumed[k]), f"resume diverged on {k}"
 
 
+TILE = 4096          # values a block of csrc/scan.cu scans
+
+
+def _counts(n, seed, lo=0, hi=100):
+    return torch.from_numpy(
+        np.random.default_rng(seed).integers(lo, hi, n).astype(np.int32))
+
+
+@pytest.mark.parametrize("n", [1, 31, TILE - 1, TILE, TILE + 1, 1_000_003, 3_616_103,
+                               67_108_869])
+def test_cumsum_kernel_matches_torch_cumsum(card, n):
+    assert ks._library()[1] == TILE
+    x = _counts(n, n).to(card)
+    before = ks.cumsum.launches
+    got = ks.cumsum(x)
+    assert ks.cumsum.launches == before + 1
+    assert got.dtype == torch.int32
+    assert torch.equal(got, torch.cumsum(x, 0, dtype=torch.int32))
+
+
+@pytest.mark.parametrize("offset", [1, 2, 3, 4])
+def test_cumsum_kernel_on_views_off_the_16_byte_grid(card, offset):
+    # the allocator hands out 16-byte aligned blocks; the view starts 4, 8 or
+    # 12 bytes in, and the last case is aligned again but ends mid-tile
+    whole = _counts(3 * TILE + 77, offset).to(card)
+    x = whole[offset:]
+    assert (x.data_ptr() % 16 == 0) == (offset == 4)
+    assert torch.equal(ks.cumsum(x), torch.cumsum(x, 0, dtype=torch.int32))
+
+
+def test_cumsum_kernel_zero_and_wrapping_inputs(card):
+    zeros = torch.zeros(5 * TILE + 3, dtype=torch.int32, device=card)
+    assert not ks.cumsum(zeros).any()
+    # sums pass 2^31 many times over, and negative values too: int32 wraps
+    for lo, hi in ((2 ** 30, 2 ** 31 - 1), (-2 ** 31, 2 ** 31 - 1)):
+        x = _counts(9 * TILE + 5, hi % 97, lo, hi).to(card)
+        want = torch.cumsum(x, 0, dtype=torch.int32)
+        assert int(want.min()) < 0 < int(want.max())
+        assert torch.equal(ks.cumsum(x), want)
+
+
+def test_cumsum_kernel_200_launches_running(card):
+    # back to back on one stream, nothing synchronised in between: a torn
+    # descriptor or scratch seen stale shows as one result that differs
+    x = _counts(3_616_103, 200).to(card)
+    want = torch.cumsum(x, 0, dtype=torch.int32)
+    outs = [ks.cumsum(x) for _ in range(200)]
+    torch.cuda.synchronize()
+    assert all(torch.equal(o, want) for o in outs)
+
+
+@pytest.mark.parametrize("k", [16, 256])
+@pytest.mark.parametrize("n_chunks", [1, 8, 37, 1536])
+def test_prefix_offsets_kernel_matches_plain(card, n_chunks, k):
+    counts = _counts(n_chunks * k, n_chunks + k, 0, 4097).view(n_chunks, k).to(card)
+    before = ks.cumsum.launches
+    got = rx._prefix_offsets(counts)
+    assert ks.cumsum.launches == before + 1                  # one launch, of kernel 1
+    assert got.is_contiguous() and got.shape == (n_chunks + 1, k)
+    assert torch.equal(got, rx._prefix_offsets_plain(counts))
+    # through other strides: a transposed table and every other column
+    wide = _counts(n_chunks * 2 * k, 5, 0, 99).view(2 * k, n_chunks).to(card)
+    view = wide.t()[:, ::2]
+    assert torch.equal(rx._prefix_offsets(view), rx._prefix_offsets_plain(view))
+
+
 def _u32_keys(n, seed, hi=2 ** 32):
     keys = np.random.default_rng(seed).integers(0, hi, n, dtype=np.uint32)
     return torch.from_numpy(keys.view(np.int32))
@@ -190,6 +259,47 @@ def test_radix_kernels_match_plain(card, bits, n, nv):
     assert (rx.radix_hist.launches, rx.radix_scatter.launches) == (
         h0 + 32 // bits, s0 + 32 // bits)
     assert bool((kr.u32_values(k).diff() >= 0).all())
+
+
+def _scatter_keys(kind, n):
+    if kind == "equal":
+        return np.full(n, 0x5A5A5A5A, np.uint32)
+    if kind == "one_a_digit":                   # every byte walks all 256 digits
+        return (np.arange(n, dtype=np.uint32) % 256) * np.uint32(0x01010101)
+    rnd = np.random.default_rng(n).integers(0, 2 ** 32, n, dtype=np.uint32)
+    if kind == "sorted":
+        return np.sort(rnd)
+    if kind == "reversed":
+        return np.sort(rnd)[::-1].copy()
+    assert kind == "random"
+    return rnd
+
+
+@pytest.mark.parametrize("bits", [4, 8])
+@pytest.mark.parametrize("nv", [0, 1, 9])
+@pytest.mark.parametrize("n", [1, rx.CHUNK - 1, rx.CHUNK + 1, 1_234_567])
+@pytest.mark.parametrize("kind", ["equal", "one_a_digit", "sorted", "reversed",
+                                  "random"])
+def test_radix_scatter_kernel_matches_plain(card, kind, n, nv, bits):
+    k = torch.from_numpy(_scatter_keys(kind, n).view(np.int32)).to(card)
+    v = torch.arange(nv * n, dtype=torch.int32, device=card).view(nv, n)
+    for shift in (0, 32 - bits):
+        offs = rx._prefix_offsets(rx.radix_hist(k, shift, bits))
+        got = rx.radix_scatter(k, v, offs, shift, bits)
+        ref = rx.radix_scatter_plain(k, v, offs, shift, bits)
+        assert torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1])
+        again = rx.radix_scatter(k, v, offs, shift, bits)
+        assert torch.equal(again[0], got[0]) and torch.equal(again[1], got[1])
+
+
+def test_radix_scatter_kernel_on_an_unaligned_key_view(card):
+    n = 3 * rx.CHUNK
+    whole = torch.from_numpy(_scatter_keys("random", n + 1).view(np.int32)).to(card)
+    k = whole[1:]
+    v = torch.arange(n, dtype=torch.int32, device=card).view(1, n)
+    offs = rx._prefix_offsets(rx.radix_hist(k, 8))
+    got, ref = rx.radix_scatter(k, v, offs, 8), rx.radix_scatter_plain(k, v, offs, 8)
+    assert torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1])
 
 
 @pytest.mark.parametrize("bits", [4, 8])

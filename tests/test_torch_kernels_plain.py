@@ -42,6 +42,44 @@ def test_cumsum_matches_pallas(n):
     np.testing.assert_array_equal(got.numpy(), want)
 
 
+@pytest.mark.parametrize("offset", [1, 2, 3, 5])
+def test_cumsum_on_views_with_an_offset(offset):
+    # a contiguous view that starts off the 16-byte grid is a valid input
+    x = np.random.default_rng(offset).integers(-50, 100, 9000).astype(np.int32)
+    view = torch.from_numpy(x)[offset:]
+    assert view.storage_offset() == offset and view.is_contiguous()
+    got = ks.cumsum(view)
+    np.testing.assert_array_equal(got.numpy(), np.cumsum(x[offset:], dtype=np.int32))
+    np.testing.assert_array_equal(
+        got.numpy(), np.asarray(jax_scan.cumsum(jnp.asarray(x[offset:]))))
+
+
+def test_cumsum_wraps_as_int32():
+    x = np.full(10, 2 ** 30, np.int32)
+    want = np.cumsum(x.astype(np.int64)).astype(np.uint64).astype(np.uint32).view(np.int32)
+    np.testing.assert_array_equal(ks.cumsum(torch.from_numpy(x)).numpy(), want)
+
+
+def test_cumsum_checks_raise_what_they_say():
+    with pytest.raises(TypeError, match="int32"):
+        ks.cumsum(torch.zeros(8, dtype=torch.int64))
+    with pytest.raises(ValueError, match="shape"):
+        ks.cumsum(torch.zeros((2, 4), dtype=torch.int32))
+    with pytest.raises(ValueError, match="contiguous"):
+        ks.cumsum(torch.zeros(16, dtype=torch.int32)[::2])
+    with pytest.raises(ValueError, match="exceed int32 indexing"):
+        ks.cumsum(torch.empty(2 ** 31, dtype=torch.int32, device="meta"))
+    with pytest.raises(ValueError, match="CPU or all on one CUDA device"):
+        ks.cumsum(torch.empty(8, dtype=torch.int32, device="meta"))
+    # int32 words one byte off their grid: no kernel access is that narrow
+    raw = np.zeros(64, np.uint8)
+    odd = raw[(-raw.ctypes.data) % 4 + 1:][:16].view(np.int32)
+    assert odd.ctypes.data % 4 == 1
+    with pytest.raises(ValueError, match="4-byte aligned"):
+        ks.cumsum(torch.from_numpy(odd))
+    assert ks.cumsum(torch.zeros(0, dtype=torch.int32)).shape == (0,)
+
+
 def _frame(seed, n, w, h):
     scene = jax_ply.make_synthetic_scene(n, seed=seed, extent=2.0)
     scene = {k: v for k, v in scene.items() if k != "sh_rest"}

@@ -57,6 +57,42 @@ def test_prefix_offsets_match_jax(n_chunks):
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
 
 
+@pytest.mark.parametrize("k", [16, 256])
+@pytest.mark.parametrize("n_chunks", [1, 8, 37])
+def test_prefix_offsets_plain_matches_jax_and_numpy(n_chunks, k):
+    counts = np.random.default_rng(n_chunks * k).integers(
+        0, 4097, (n_chunks, k)).astype(np.int32)
+    got = rx._prefix_offsets_plain(torch.from_numpy(counts))
+    assert got.dtype == torch.int32 and got.is_contiguous()
+    assert got.shape == (n_chunks + 1, k)
+    if k == 16:                                  # the JAX package's digit width
+        np.testing.assert_array_equal(
+            got.numpy(), np.asarray(jax_rx._prefix_offsets(jnp.asarray(counts))))
+    # digit-major: all of digit 0's chunks, then digit 1's, ...
+    incl = np.cumsum(counts.T.reshape(-1), dtype=np.int64).reshape(k, n_chunks)
+    np.testing.assert_array_equal(got.numpy()[:-1], (incl - counts.T).T)
+    np.testing.assert_array_equal(got.numpy()[-1], incl[:, -1])
+    # the dispatching wrapper takes this version on the CPU, whatever the strides
+    t = torch.from_numpy(np.ascontiguousarray(counts.T)).t()
+    assert not t.is_contiguous() or 1 in t.shape
+    assert torch.equal(rx._prefix_offsets(t), got)
+
+
+def test_prefix_offsets_checks_raise_what_they_say():
+    assert torch.equal(rx._prefix_offsets(torch.zeros((0, 16), dtype=torch.int32)),
+                       torch.zeros((1, 16), dtype=torch.int32))
+    with pytest.raises(TypeError, match="int32"):
+        rx._prefix_offsets(torch.zeros((4, 16), dtype=torch.int64))
+    with pytest.raises(ValueError, match="table"):
+        rx._prefix_offsets(torch.zeros(64, dtype=torch.int32))
+    with pytest.raises(ValueError, match="table"):
+        rx._prefix_offsets(torch.zeros((4, 0), dtype=torch.int32))
+    with pytest.raises(ValueError, match="exceed int32 indexing"):
+        rx._prefix_offsets(torch.empty((2 ** 23, 256), dtype=torch.int32, device="meta"))
+    with pytest.raises(ValueError, match="CPU or all on one CUDA device"):
+        rx._prefix_offsets(torch.empty((4, 16), dtype=torch.int32, device="meta"))
+
+
 def _case(name):
     """(u32 keys, payload rows, key_bits) of one case of tests/test_radix_sort.py."""
     rng = np.random.default_rng(sum(map(ord, name)))
