@@ -22,14 +22,18 @@ csrc`` (nvcc, at first use), then:
    element for element; the bucketing-level probe kernel exact on 64
    chunks and timed through its probe at 6,291,456 records, and the
    build-cache probe with its kernel, timed at (8, 128) and at 1,000,003
-   values (these two run last, behind every time of the main paths);
+   values, there also 40 calls back to back and on the device alone
+   (torch.profiler) beside ``torch.add`` (these two run last, behind every
+   time of the main paths);
    segment sum
    on the flagship frame's shapes with a seeded cotangent; compositor
    forward (image max abs diff <= 5e-3 with <= 10 px above 1e-3) and
    backward (per row within a stated share of the row's largest gradient,
    columns past the last tile zero) on the uniform flagship frame's sorted
-   records and on the 10k-splat gate scene, with a seeded cotangent and
-   each backward fed its own forward's output;
+   records, on the 10k-splat gate scene and on the clustered flagship
+   frame's sorted records (one tile of some 660,000 records; the plain
+   versions timed once there), with a seeded cotangent and each backward
+   fed its own forward's output;
 3. drives the render path through ``render_arrays`` at the reference's
    operating point (3,616,103 splats at 1024x512, uniform and clustered
    scenes), with every kernel launch counter reset just before and read
@@ -41,7 +45,7 @@ csrc`` (nvcc, at first use), then:
    the q16 inference mode within 0.01 of the f32 frame), each with its own
    launch counts, and q16 against f32 on a 512-splat scene within 2e-3;
 4. prints each flagship scene's per-stage device times of one forward +
-   backward (CUDA events);
+   backward (CUDA events), and in phase 6 the 1080p scene's;
 5. drives the training path: five Adam steps of ``make_train_step`` (L1 +
    D-SSIM, per-splat densification statistic) on the uniform flagship scene
    with perturbed colours against its clean render, counters reset just
@@ -182,6 +186,39 @@ def host_us(fn, reps: int = 200) -> float:
         times.append((time.perf_counter() - t0) * 1e6)
     torch.cuda.synchronize()
     return statistics.median(times)
+
+
+def cuda_ms_once(fn):
+    """(result, device time in ms) of one call of ``fn``, not warmed up: for
+    a plain version that takes seconds."""
+    import torch
+
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    result = fn()
+    end.record()
+    end.synchronize()
+    return result, start.elapsed_time(end)
+
+
+def device_us(fn, calls: int = 50):
+    """Mean time on the device of what one call of ``fn`` launches there, in
+    microseconds, from torch.profiler's kernel records: the host's dispatch
+    is not in it. None where the profiler records no device activity."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    total = sum(e.time_range.elapsed_us() for e in prof.events()
+                if e.device_type == DeviceType.CUDA)
+    return total / calls if total > 0 else None
 
 
 def image_diff(a, b):
@@ -577,18 +614,33 @@ def check_probes(results):
     ms, pms = cuda_ms(lambda: cp.probe_affine(x)), cuda_ms(lambda: cp.probe_affine_plain(x))
     lms = cuda_ms(lambda: torch.add(one, x, alpha=2.0))
     big = torch.randn(LARGE_AFFINE, generator=gen, device=dev)
+    # events around one call read the host's dispatch at this size, and so do
+    # 40 calls back to back where the call's Python outlasts its kernel; the
+    # profiler's kernel records read the device alone
     large = dict(n=LARGE_AFFINE, ms=cuda_ms(lambda: cp.probe_affine(big)),
                  library_ms=cuda_ms(lambda: torch.add(one, big, alpha=2.0)),
+                 running_ms=cuda_ms_running(lambda: cp.probe_affine(big)),
+                 library_running_ms=cuda_ms_running(
+                     lambda: torch.add(one, big, alpha=2.0)),
+                 device_us=device_us(lambda: cp.probe_affine(big)),
+                 library_device_us=device_us(lambda: torch.add(one, big, alpha=2.0)),
                  **bound(8 * LARGE_AFFINE, 2 * LARGE_AFFINE))
     results["probe_affine"] = dict(max_abs_err=0.0, ms=ms, plain_ms=pms, library_ms=lms,
                                    **bound(8 * x.numel(), 2 * x.numel()), large=large)
+    def us(v):
+        return "not measured" if v is None else f"{v:.3f}"
+
     reset_launches()
     cache = cp.run()
     launches["probe_affine"] = read_launches()["probe_affine"]
     log(f"[2] probe_affine exact at (8, 128) and 1,000,003 values; kernel {ms:.4f} "
         f"ms, plain {pms:.4f} ms, torch.add(alpha=2) {lms:.4f} ms; at "
         f"{LARGE_AFFINE} values kernel {large['ms']:.4f} ms, torch.add "
-        f"{large['library_ms']:.4f} ms, bound {large['bound_ms']:.4f} ms; build-cache "
+        f"{large['library_ms']:.4f} ms, 40 calls back to back "
+        f"{large['running_ms']:.4f} ms a call, torch.add "
+        f"{large['library_running_ms']:.4f}, on the device alone (profiler, us a call) "
+        f"{us(large['device_us'])} against {us(large['library_device_us'])}, bound "
+        f"{large['bound_ms']:.4f} ms; build-cache "
         f"probe {json.dumps(cache)}")
     return launches
 
@@ -658,10 +710,11 @@ def check_small_q16(device):
     assert 0.0 < err < Q16_SMALL_TOL, "small frame: q16 outside its budget"
 
 
-def check_composite(name, frame):
+def check_composite(name, frame, plain_once=False):
     """Kernels 4 and 5 on the frame's own sorted records, with a seeded
-    cotangent and each backward fed its own forward's output. Returns the
-    two kernels' result rows."""
+    cotangent and each backward fed its own forward's output. The plain
+    versions are timed as the kernels are, or with ``plain_once`` by the one
+    call that makes the reference. Returns the two kernels' result rows."""
     import torch
 
     from openglgaussiansplattingrenderer_tpu_torch.ops.kernels import composite as kc
@@ -670,13 +723,15 @@ def check_composite(name, frame):
     ox, oy, kw = frame.composite_inputs(sf)
     got = kc.composite(sf, bounds, ox, oy, **kw)
     pairs = {}
-    ref = kc.composite_plain(sf, bounds, ox, oy, **kw, pair_counts=pairs)
+    ref, pms = cuda_ms_once(
+        lambda: kc.composite_plain(sf, bounds, ox, oy, **kw, pair_counts=pairs))
     visited, blended = int(pairs["visited"]), int(pairs["blended"])
     err, bad = image_diff(frame.image(got), frame.image(ref))
     assert err <= GATE_MAX_ABS and bad <= GATE_MAX_PX, (
         f"{name}: compositor vs plain: max abs {err:.3e}, {bad} px > 1e-3")
     ms = cuda_ms(lambda: kc.composite(sf, bounds, ox, oy, **kw))
-    pms = cuda_ms(lambda: kc.composite_plain(sf, bounds, ox, oy, **kw))
+    if not plain_once:
+        pms = cuda_ms(lambda: kc.composite_plain(sf, bounds, ox, oy, **kw))
     nrec, npix = int(bounds[-1]), got.shape[0] * got.shape[1]
     work = dict(records=nrec,
                 max_records_per_tile=int((bounds[1:] - bounds[:-1]).max()),
@@ -697,7 +752,8 @@ def check_composite(name, frame):
     gen = torch.Generator(device=sf.device).manual_seed(6)
     g = torch.randn(got.shape, generator=gen, device=sf.device)
     d_got = kc.composite_bwd(sf, bounds, ox, oy, got, g, **kw)
-    d_ref = kc.composite_bwd_plain(sf, bounds, ox, oy, ref, g, **kw)
+    d_ref, pms = cuda_ms_once(
+        lambda: kc.composite_bwd_plain(sf, bounds, ox, oy, ref, g, **kw))
     assert bool(torch.isfinite(d_got).all()), f"{name}: composite_bwd not finite"
     assert not d_got[:, nrec:].any(), (
         f"{name}: composite_bwd: columns past bounds[-1] not zero")
@@ -711,7 +767,8 @@ def check_composite(name, frame):
         f"{name}: composite_bwd vs plain: {worst:.3e} of the row's scale, "
         f"{loose} records beyond 1e-3")
     ms = cuda_ms(lambda: kc.composite_bwd(sf, bounds, ox, oy, got, g, **kw))
-    pms = cuda_ms(lambda: kc.composite_bwd_plain(sf, bounds, ox, oy, ref, g, **kw))
+    if not plain_once:
+        pms = cuda_ms(lambda: kc.composite_bwd_plain(sf, bounds, ox, oy, ref, g, **kw))
     # read 36 B and write 36 B a binned record, read 32 B a pixel
     bwd = dict(max_abs_err=max_abs, max_row_rel_err=worst, ms=ms, plain_ms=pms,
                library_ms=None,
@@ -958,8 +1015,10 @@ def main() -> int:
         f"built in {build.build_info['seconds']:.1f} s (load "
         f"{time.perf_counter() - t0:.1f} s): {build.build_info['path']}")
     for line in build.build_info["ptxas"].splitlines():
-        if "Used" in line or "spill" in line:
-            log(f"[1] ptxas {line.strip()}")
+        if "Compiling entry function" in line:
+            log(f"[1] ptxas {line.split(chr(39))[1][:110]}")
+        elif "Used" in line or "spill" in line:
+            log(f"[1] ptxas     {line.replace('ptxas info    :', '').strip()}")
 
     # ---- scenes -----------------------------------------------------------
     fcfg0 = RenderConfig.for_resolution(FLAG_W, FLAG_H, tile_px=32, chunk=256)
@@ -988,13 +1047,16 @@ def main() -> int:
     with torch.no_grad():
         check_scan_and_expand(frames["uniform"], results)
         check_radix(frames["uniform"], results)
-        # kernels 4 and 5 at the main path's shapes; the gate scene's
-        # numbers ride along under "gate_scene"
+        # kernels 4 and 5 at the main path's shapes; the gate scene's and
+        # the clustered frame's numbers ride along under their names
         fwd, bwd = check_composite("uniform flagship", frames["uniform"])
         gate_fwd, gate_bwd = check_composite(
             f"gate scene ({GATE_SPLATS} splats)", gate)
-        results["composite"] = dict(fwd, gate_scene=gate_fwd)
-        results["composite_bwd"] = dict(bwd, gate_scene=gate_bwd)
+        # and where one tile holds most of the frame's records
+        cl_fwd, cl_bwd = check_composite("clustered flagship", frames["clustered"],
+                                         plain_once=True)
+        results["composite"] = dict(fwd, gate_scene=gate_fwd, clustered=cl_fwd)
+        results["composite_bwd"] = dict(bwd, gate_scene=gate_bwd, clustered=cl_bwd)
 
         # ---- 3. the render path --------------------------------------------
         reset_launches()
@@ -1053,6 +1115,7 @@ def main() -> int:
     msplats.cfg = autotune_capacity(msplats.params, *msplats.args[:6], MSPLATS_W,
                                     MSPLATS_H, mcfg0)
     check_fwdbwd(f"{MSPLATS} splats {MSPLATS_W}x{MSPLATS_H}", msplats)
+    stage_times(f"{MSPLATS} splats {MSPLATS_W}x{MSPLATS_H}", msplats)
     check_small_gradients(dev)
 
     # ---- 2, continued: the probe kernels (3.2 GB written a launch, and a

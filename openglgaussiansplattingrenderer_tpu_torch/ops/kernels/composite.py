@@ -25,6 +25,17 @@ g_rgb . colour_k and T_fin the final transmittance:
 which flows on only where the record was kept, included and not clamped at
 alpha_max; dpower = dalpha * alpha, and the nine field gradients are sums
 of dpower and the blend weight over the tile's pixels.
+
+On the card a warp owns a patch of 32 pixels (``patch_shape``) and skips
+the records that cannot reach ``alpha_min`` anywhere in it (in the box
+around those of its pixels that are still alive); a block stages only the
+records that pass the same test on the box around all of its live pixels.
+The skip test is ``patch_reach_plain`` here, for any rect: conservative, so
+the blend with it is the blend without it. ``composite_plain`` and
+``composite_bwd_plain`` apply it per patch with ``patch_cull=True``, which
+changes no bit of their results. ``chunk`` is the most records a staged
+batch holds (the backward's holds at least one a thread); no result
+depends on it.
 """
 
 from __future__ import annotations
@@ -32,7 +43,10 @@ from __future__ import annotations
 import torch
 
 from openglgaussiansplattingrenderer_tpu_torch.ops.kernels import build
-from openglgaussiansplattingrenderer_tpu_torch.ops.kernels.records import NUM_FIELDS
+from openglgaussiansplattingrenderer_tpu_torch.ops.kernels.records import (
+    NUM_FIELDS,
+    _ln_alpha_min,
+)
 
 
 def tile_origins(tile_ids: torch.Tensor, pw: int, ph: int, gx: int):
@@ -55,8 +69,78 @@ def _cumprod_excl(x: torch.Tensor) -> torch.Tensor:
     return x
 
 
+def patch_shape(pw: int):
+    """(px, py) of the pixel patch a warp owns on the card: px * py = 32, px
+    the smallest power of two that covers the tile's width, at most 8."""
+    px = 8
+    while px > 1 and px // 2 >= pw:
+        px //= 2
+    return px, 32 // px
+
+
+def patch_rects(pw: int, ph: int):
+    """The tile-local pixel rects (x0, y0, x1, y1), inclusive and clipped to
+    the tile, of the patches that cover a pw x ph tile, row-major, and the
+    patch index of every pixel of the tile (p,) int64."""
+    px, py = patch_shape(pw)
+    pax, pay = -(-pw // px), -(-ph // py)
+    rects = [(i * px, j * py, min((i + 1) * px, pw) - 1, min((j + 1) * py, ph) - 1)
+             for j in range(pay) for i in range(pax)]
+    pix = torch.arange(pw * ph)
+    of_pixel = (torch.div(pix, pw, rounding_mode="floor") // py) * pax + (pix % pw) // px
+    return rects, of_pixel
+
+
+def _clip(x, lo, hi):
+    # fminf(fmaxf(x, lo), hi): as the kernel clips
+    return torch.minimum(torch.maximum(x, lo), hi)
+
+
+def patch_reach_plain(rec, ox, oy, rect, alpha_min):
+    """The plain PyTorch version of the kernels' skip test: can record
+    ``rec`` (9, ...) of a tile with pixel origin ``ox``, ``oy`` (broadcast
+    against ``rec[0]``) reach ``alpha_min`` anywhere in the tile-local
+    pixel rect ``rect`` = (x0, y0, x1, y1), inclusive (numbers or tensors
+    that broadcast)? The exact minimum of the conic quadratic over the rect
+    (the smaller of the two KKT edge candidates, with the expansion cull's
+    margins) against ln(op / alpha_min). Conservative: a record it drops
+    has alpha < alpha_min at every pixel of the rect; records with a
+    non-finite field or a conic whose Cholesky factors the blend clamps
+    always pass. Returns a bool tensor."""
+    f32 = dict(dtype=torch.float32, device=rec.device)
+    x0, y0, x1, y1 = (torch.as_tensor(v, **f32) for v in rect)
+    mxl = rec[0] - torch.as_tensor(ox, device=rec.device).to(torch.float32)
+    myl = rec[1] - torch.as_tensor(oy, device=rec.device).to(torch.float32)
+    aa, bb, cc, op = rec[2], rec[3], rec[4], rec[5]
+    s11 = torch.sqrt(torch.clamp_min(aa * 0.5, 0.0))
+    s12 = (bb * 0.5) / torch.clamp_min(s11, 1e-20)
+    finite = (torch.isfinite(mxl) & torch.isfinite(myl) & torch.isfinite(aa)
+              & torch.isfinite(bb) & torch.isfinite(cc) & torch.isfinite(op))
+    proper = (s11 >= 1e-20) & (cc * 0.5 - s12 * s12 >= 0.0)
+    lnr = torch.log(torch.clamp_min(op, 1e-30)) - _ln_alpha_min(alpha_min)
+    limit = torch.where(finite & proper, lnr, torch.full_like(lnr, float("inf"))) + 1e-4
+    dx0 = _clip(mxl, x0, x1) - mxl
+    dy0 = _clip(myl, y0, y1) - myl
+    dys = _clip(-bb * dx0 / torch.clamp_min(cc, 1e-12), y0 - myl, y1 - myl)
+    q1 = (aa * dx0 * dx0 + cc * dys * dys) + 2.0 * (bb * dx0 * dys)
+    dxs = _clip(-bb * dy0 / torch.clamp_min(aa, 1e-12), x0 - mxl, x1 - mxl)
+    q2 = (aa * dxs * dxs + cc * dy0 * dy0) + 2.0 * (bb * dxs * dy0)
+    return ~((q1 * 0.49999 > limit) & (q2 * 0.49999 > limit))
+
+
+def _patch_mask(r, oxa, oya, pw, ph, alpha_min):
+    """(A, p, chunk) bool: does record (a, k) of ``r`` (9, A, chunk) reach the
+    patch that pixel p lies in, for tiles with origins ``oxa``, ``oya`` (A,)."""
+    rects, of_pixel = patch_rects(pw, ph)
+    rect = [torch.tensor([q[i] for q in rects], dtype=torch.float32,
+                         device=r.device)[None, :, None] for i in range(4)]
+    reach = patch_reach_plain(r[:, :, None, :], oxa[:, None, None], oya[:, None, None],
+                              rect, alpha_min)                    # (A, patches, chunk)
+    return reach[:, of_pixel.to(r.device), :]
+
+
 def composite_plain(rec, bounds, ox, oy, *, pw, ph, chunk, alpha_min,
-                    alpha_max, thresh, pair_counts=None):
+                    alpha_max, thresh, pair_counts=None, patch_cull=False):
     """The plain PyTorch version, with the TPU kernel's formulation: chunks
     aligned to multiples of ``chunk`` in the sorted record array, vectorised
     over tiles and pixels; within a chunk the exclusive cumprod of 1 - alpha
@@ -67,7 +151,9 @@ def composite_plain(rec, bounds, ox, oy, *, pw, ph, chunk, alpha_min,
     ``pair_counts``, a dict, receives the work the blend needs on these
     inputs: ``visited``, the (pixel, record) pairs met before the pixel
     saturated, and ``blended``, those of them whose alpha reached
-    ``alpha_min`` (device scalars)."""
+    ``alpha_min`` (device scalars). ``patch_cull`` zeroes a record's alpha
+    in the pixel patches ``patch_reach_plain`` says it cannot reach, as the
+    kernel skips it there; the result is the same to the bit."""
     dev = rec.device
     t = bounds.shape[0] - 1
     p = pw * ph
@@ -103,6 +189,9 @@ def composite_plain(rec, bounds, ox, oy, *, pw, ph, chunk, alpha_min,
         power = -(u * u + v * v)
         alpha = torch.clamp_max(torch.exp(power) * opm, alpha_max)
         alpha = torch.where(alpha >= alpha_min, alpha, torch.zeros((), device=dev))
+        if patch_cull:
+            alpha = torch.where(_patch_mask(r, ox[act], oy[act], pw, ph, alpha_min),
+                                alpha, torch.zeros((), device=dev))
         one_m = 1.0 - alpha
         tr = trans[act][:, :, None]
         s_excl = tr * _cumprod_excl(one_m)
@@ -118,13 +207,14 @@ def composite_plain(rec, bounds, ox, oy, *, pw, ph, chunk, alpha_min,
 
 
 def composite_bwd_plain(rec, bounds, ox, oy, out, g, *, pw, ph, chunk,
-                        alpha_min, alpha_max, thresh):
+                        alpha_min, alpha_max, thresh, patch_cull=False):
     """The plain PyTorch version of the backward. It mirrors
     ``composite_plain`` step for step (the same aligned chunks, scanned
     transmittance prefix and masked-minimum carry), so with ``out`` from
     ``composite_plain`` it repeats that forward's keep and include
     decisions exactly. Returns the (9, C) record cotangents; columns no
-    tile visits (past ``bounds[-1]``, or behind a saturated tile) are 0."""
+    tile visits (past ``bounds[-1]``, or behind a saturated tile) are 0.
+    ``patch_cull`` as in ``composite_plain``."""
     dev = rec.device
     t = bounds.shape[0] - 1
     p = pw * ph
@@ -164,6 +254,8 @@ def composite_bwd_plain(rec, bounds, ox, oy, out, g, *, pw, ph, chunk,
         alpha_pre = torch.exp(power) * opm
         alpha = torch.clamp_max(alpha_pre, alpha_max)
         keep = alpha >= alpha_min
+        if patch_cull:
+            keep = keep & _patch_mask(r, ox[act], oy[act], pw, ph, alpha_min)
         alpha = torch.where(keep, alpha, zero)
         one_m = 1.0 - alpha
         tr = trans[act][:, :, None]
@@ -208,11 +300,15 @@ def _expect_inputs(name, rec, bounds, ox, oy):
     return t
 
 
-def _check_launch_shape(lib, name, p, chunk):
-    if p > lib.gs_composite_max_pixels() or not 0 < chunk <= 1024:
-        raise ValueError(f"{name}: {p} pixels a tile (max "
-                         f"{lib.gs_composite_max_pixels()}) or chunk {chunk} "
-                         "(max 1024) out of range")
+def _check_launch_shape(lib, name, pw, ph, chunk):
+    px, py = patch_shape(pw)
+    patches = -(-pw // px) * -(-ph // (4 * py))     # a lane takes up to 4 patches
+    if (min(pw, ph) <= 0 or pw * ph > lib.gs_composite_max_pixels()
+            or patches > 16 or not 0 < chunk <= 1024):
+        raise ValueError(f"{name}: a {pw}x{ph} tile (max "
+                         f"{lib.gs_composite_max_pixels()} pixels, {px}x{4 * py} "
+                         f"patches for 16 warps) or chunk {chunk} (max 1024) "
+                         "out of range")
 
 
 def composite_fwd(rec, bounds, ox, oy, *, pw, ph, chunk, alpha_min, alpha_max,
@@ -225,13 +321,14 @@ def composite_fwd(rec, bounds, ox, oy, *, pw, ph, chunk, alpha_min, alpha_max,
     if not build.on_cuda("composite", rec, bounds, ox, oy):
         return composite_plain(rec, bounds, ox, oy, **args)
     lib = build.load_library()
-    p = pw * ph
-    _check_launch_shape(lib, "composite", p, chunk)
-    out = torch.empty((t, p, 4), dtype=torch.float32, device=rec.device)
+    _check_launch_shape(lib, "composite", pw, ph, chunk)
+    out = torch.empty((t, pw * ph, 4), dtype=torch.float32, device=rec.device)
+    if t == 0:
+        return out
     build.check("composite", lib.gs_composite_fwd(
         rec.data_ptr(), rec.shape[1], bounds.data_ptr(), ox.data_ptr(),
-        oy.data_ptr(), out.data_ptr(), t, pw, p, chunk, alpha_min, alpha_max,
-        thresh, build.stream_ptr()))
+        oy.data_ptr(), out.data_ptr(), t, pw, ph, chunk, alpha_min, alpha_max,
+        thresh, _ln_alpha_min(alpha_min), build.stream_ptr()))
     composite.launches += 1
     return out
 
@@ -250,14 +347,17 @@ def composite_bwd(rec, bounds, ox, oy, out, g, *, pw, ph, chunk, alpha_min,
     if not build.on_cuda("composite_bwd", rec, bounds, ox, oy, out, g):
         return composite_bwd_plain(rec, bounds, ox, oy, out, g, **args)
     lib = build.load_library()
-    _check_launch_shape(lib, "composite_bwd", p, chunk)
-    # zeroed: a block writes only the batches it visits before its tile
-    # saturates, and no block writes past bounds[-1]
-    drec = torch.zeros_like(rec)
+    _check_launch_shape(lib, "composite_bwd", pw, ph, chunk)
+    if t == 0:
+        return torch.zeros_like(rec)
+    # not cleared: the kernel writes every column, zeros where no tile's
+    # walk arrives (behind saturation, outside [bounds[0], bounds[-1]))
+    drec = torch.empty_like(rec)
     build.check("composite_bwd", lib.gs_composite_bwd(
         rec.data_ptr(), rec.shape[1], bounds.data_ptr(), ox.data_ptr(),
         oy.data_ptr(), out.data_ptr(), g.data_ptr(), drec.data_ptr(), t, pw,
-        p, chunk, alpha_min, alpha_max, thresh, build.stream_ptr()))
+        ph, chunk, alpha_min, alpha_max, thresh, _ln_alpha_min(alpha_min),
+        build.stream_ptr()))
     composite_bwd.launches += 1
     return drec
 

@@ -7,8 +7,13 @@ card run them with
     python -m pytest tests/test_torch_cuda.py --noconftest -q
 
 They cover what ``chip_smoke.py``'s flagship shapes do not: every
-pixels-per-thread variant of the compositor, pixels past the tile, empty
-tiles, a batch above the default 48 KB of shared memory, overflow in the
+tile shape of the compositor (one to sixty-four pixel patches, ragged
+edges), pixels past the tile, empty tiles first, last and in a row, one
+tile of 200,000 records that never saturates, a tile that saturates inside
+its first batch, records crowded on pixels that have saturated while others
+stay alive, records centred on patch and tile borders, a gradient
+buffer that was not zero, a batch above the default 48 KB of shared memory,
+overflow in the
 segment sum, run-to-run equality, training on the card, the single-pass
 prefix sum at tile edges, on unaligned views, on wrapping sums and 200
 launches running, the radix sort's offset table, the radix-sort kernels at
@@ -66,7 +71,7 @@ def _records(seed, tiles, per_tile, pw, ph, device):
 
 @pytest.mark.parametrize("pw,ph,chunk", [
     (8, 8, 16), (10, 7, 64), (16, 32, 256), (32, 32, 256), (64, 32, 128),
-    (32, 32, 1024)])
+    (32, 32, 1024), (5, 5, 32), (32, 32, 100)])
 def test_compositor_kernels_match_plain(card, pw, ph, chunk):
     rec, bounds, ox, oy = _records(pw * ph + chunk, 9, 700, pw, ph, card)
     kw = dict(pw=pw, ph=ph, chunk=chunk, alpha_min=1 / 255, alpha_max=0.99,
@@ -87,6 +92,160 @@ def test_compositor_kernels_match_plain(card, pw, ph, chunk):
     assert not d_got[:, int(bounds[-1]):].any()
     # the same launch again gives the same bits: no atomics
     assert torch.equal(d_got, kc.composite_bwd(rec, bounds, ox, oy, got, g, **kw))
+
+
+KW = dict(alpha_min=1 / 255, alpha_max=0.99, thresh=0.01)
+
+
+def _dirty_allocator(like):
+    """Leave NaNs in the block the next allocation of ``like``'s size gets:
+    a kernel that counts on a cleared output shows."""
+    junk = torch.full_like(like, float("nan"))
+    del junk
+
+
+def _compare_compositor(rec, bounds, ox, oy, **kw):
+    """Both kernels against their plain versions (forward 5e-3 of the colour
+    scale, backward 5e-3 of a row's largest gradient), the backward twice."""
+    n = int(bounds[-1])
+    with torch.no_grad():
+        got = kc.composite(rec, bounds, ox, oy, **kw)
+        ref = kc.composite_plain(rec, bounds, ox, oy, **kw)
+        assert float((got - ref).abs().max() / 255) <= 5e-3
+        g = torch.randn(got.shape, generator=torch.Generator().manual_seed(1)).to(
+            rec.device)
+        _dirty_allocator(rec)
+        d_got = kc.composite_bwd(rec, bounds, ox, oy, got, g, **kw)
+        d_ref = kc.composite_bwd_plain(rec, bounds, ox, oy, ref, g, **kw)
+        assert bool(torch.isfinite(d_got).all())
+        scale = d_ref.abs().amax(dim=1, keepdim=True).clamp_min(1e-30)
+        assert float(((d_got - d_ref).abs() / scale).max()) <= 5e-3
+        assert not d_got[:, n:].any() and not d_got[:, :int(bounds[0])].any()
+        _dirty_allocator(rec)
+        assert torch.equal(d_got, kc.composite_bwd(rec, bounds, ox, oy, got, g, **kw))
+    return got, d_got
+
+
+def _one_tile(n, seed, sigma, opacity, card, pad=11):
+    """n records scattered over one 32x32 tile: isotropic Gaussians."""
+    rng = np.random.default_rng(seed)
+    rec = np.zeros((9, n + pad), np.float32)
+    rec[0, :n], rec[1, :n] = rng.uniform(-2, 34, (2, n))
+    s = rng.uniform(*sigma, n)
+    rec[2, :n] = rec[4, :n] = 1 / s ** 2
+    rec[5, :n] = rng.uniform(*opacity, n)
+    rec[6:9, :n] = rng.uniform(0, 255, (3, n))
+    bounds = torch.tensor([0, n], dtype=torch.int32)
+    zero = torch.zeros(1, dtype=torch.int32)
+    return tuple(t.to(card) for t in (torch.from_numpy(rec), bounds, zero, zero))
+
+
+def test_compositor_kernels_on_a_heavy_tile_that_never_saturates(card):
+    # 200,000 faint one-pixel splats: every pixel stays alive to the end, so
+    # every warp walks all 782 batches
+    rec, bounds, ox, oy = _one_tile(200_000, 5, (0.5, 0.8), (0.004, 0.0048), card)
+    got, d_got = _compare_compositor(rec, bounds, ox, oy, pw=32, ph=32, chunk=256, **KW)
+    assert float(got[..., 3].min()) > 0.01 and float(got[..., 3].max()) < 0.999
+    assert bool(d_got[:, 199_000:200_000].any())         # the walk reaches the end
+
+
+def test_compositor_kernels_on_a_tile_that_saturates_in_its_first_batch(card):
+    # wide opaque splats: every pixel is done within a few records, and the
+    # gradient of all later ones is written as zero
+    rec, bounds, ox, oy = _one_tile(5000, 6, (20.0, 40.0), (0.9, 0.99), card)
+    got, d_got = _compare_compositor(rec, bounds, ox, oy, pw=32, ph=32, chunk=256, **KW)
+    assert float(got[..., 3].max()) <= 0.01
+    assert not d_got[:, 256:].any() and bool(d_got[:, :8].any())
+
+
+@pytest.mark.parametrize("chunk", [64, 256, 1024])
+def test_compositor_kernels_on_records_crowded_on_saturated_pixels(card, chunk):
+    # 60,000 small opaque splats on a few pixels that saturate at once, mixed
+    # in depth with 600 faint wide ones that the rest of the tile, alive to
+    # the end, does blend: the kernels stage only what reaches the box around
+    # the live pixels, a handful out of each pass, and the rest gets zeros
+    rng = np.random.default_rng(chunk)
+    n, wide = 60_600, 600
+    rec = np.zeros((9, n + 5), np.float32)
+    rec[0, :n], rec[1, :n] = rng.normal(24.0, 0.8, n), rng.normal(7.0, 0.8, n)
+    s = rng.uniform(0.3, 0.6, n)
+    rec[5, :n] = rng.uniform(0.5, 0.99, n)
+    far = rng.choice(n, wide, replace=False)
+    rec[0, far], rec[1, far] = rng.uniform(-2, 34, (2, wide))
+    s[far] = rng.uniform(1.0, 4.0, wide)
+    rec[5, far] = rng.uniform(0.004, 0.01, wide)
+    rec[2, :n] = rec[4, :n] = 1 / s ** 2
+    rec[6:9, :n] = rng.uniform(0, 255, (3, n))
+    bounds = torch.tensor([0, n], dtype=torch.int32)
+    zero = torch.zeros(1, dtype=torch.int32)
+    args = tuple(t.to(card) for t in (torch.from_numpy(rec), bounds, zero, zero))
+    got, d_got = _compare_compositor(*args, pw=32, ph=32, chunk=chunk, **KW)
+    trans = got[0, :, 3].view(32, 32)
+    assert float(trans[7, 24]) <= 0.01 and float(trans[28, 4]) > 0.5
+    late = torch.from_numpy(far[far > n - 5000]).to(card)
+    assert bool(d_got[:, late].any())                    # the walk reaches the end
+    crowd = torch.ones(n, dtype=torch.bool)
+    crowd[far] = False
+    crowd[:5000] = False
+    untouched = ~d_got[:, :n].any(dim=0)                 # behind saturation: zeros
+    assert float(untouched[crowd.to(card)].float().mean()) > 0.9
+
+
+@pytest.mark.parametrize("pw,ph", [(32, 32), (16, 16), (10, 7)])
+def test_compositor_kernels_on_records_centred_on_patch_borders(card, pw, ph):
+    # centres on and half a pixel off every patch and tile border, sizes
+    # such that the skip test decides at the patch's edge
+    px, py = kc.patch_shape(pw)
+    xs = [x + d for x in range(0, pw + 1, px) for d in (-0.5, 0.0, 0.5)] + [pw - 1.0]
+    ys = [y + d for y in range(0, ph + 1, py) for d in (-0.5, 0.0, 0.5)] + [ph - 1.0]
+    rng = np.random.default_rng(pw)
+    cx, cy = (a.ravel() for a in np.meshgrid(xs, ys))
+    cx, cy = np.tile(cx, 3), np.tile(cy, 3)
+    n = cx.size
+    order = rng.permutation(n)
+    rec = np.zeros((9, n), np.float32)
+    rec[0], rec[1] = cx[order], cy[order]
+    s = rng.uniform(0.4, 3.0, n)
+    rec[2], rec[4] = 1 / s ** 2, 1 / (s * rng.uniform(0.5, 2.0, n)) ** 2
+    rec[3] = rng.uniform(-0.5, 0.5, n) * np.sqrt(rec[2] * rec[4])
+    rec[5] = rng.uniform(0.004, 0.3, n)
+    rec[6:9] = rng.uniform(0, 255, (3, n))
+    bounds = torch.tensor([0, n], dtype=torch.int32)
+    zero = torch.zeros(1, dtype=torch.int32)
+    args = tuple(t.to(card) for t in (torch.from_numpy(rec), bounds, zero, zero))
+    _compare_compositor(*args, pw=pw, ph=ph, chunk=64, **KW)
+
+
+@pytest.mark.parametrize("counts", [
+    [0, 0, 300, 40], [300, 40, 0, 0], [50, 0, 0, 0, 700, 0, 0, 9], [0, 0, 0], [0, 17]])
+def test_compositor_kernels_with_empty_tiles_first_last_and_in_a_row(card, counts):
+    pw = ph = 32
+    rng = np.random.default_rng(len(counts))
+    bounds = np.concatenate([[0], np.cumsum(counts)]).astype(np.int32)
+    n, tiles = int(bounds[-1]), len(counts)
+    tile = np.repeat(np.arange(tiles), counts)
+    rec = np.zeros((9, n + 3), np.float32)
+    rec[0, :n] = tile * pw + rng.uniform(0, pw, n)
+    rec[1, :n] = rng.uniform(0, ph, n)
+    s = rng.uniform(0.05, 0.3, n)
+    rec[2, :n], rec[4, :n] = s, s * rng.uniform(0.5, 1.5, n)
+    rec[5, :n] = rng.uniform(0.05, 0.99, n)
+    rec[6:9, :n] = rng.uniform(0, 255, (3, n))
+    ox = torch.arange(tiles, dtype=torch.int32) * pw
+    args = tuple(t.to(card) for t in (
+        torch.from_numpy(rec), torch.from_numpy(bounds), ox,
+        torch.zeros(tiles, dtype=torch.int32)))
+    got, _ = _compare_compositor(*args, pw=pw, ph=ph, chunk=128, **KW)
+    empty = torch.tensor(counts) == 0
+    assert bool((got[empty.to(card)] == torch.tensor([0.0, 0, 0, 1]).to(card)).all())
+
+
+def test_compositor_kernels_refuse_a_tile_shape_they_cannot_map(card):
+    rec, bounds, ox, oy = _records(3, 2, 50, 2048, 1, card)
+    with pytest.raises(ValueError, match="out of range"):
+        kc.composite_fwd(rec, bounds, ox, oy, pw=2048, ph=1, chunk=64, **KW)
+    with pytest.raises(ValueError, match="out of range"):
+        kc.composite_fwd(rec, bounds, ox, oy, pw=64, ph=64, chunk=64, **KW)
 
 
 @pytest.mark.parametrize("capacity", [4096, 1 << 16])
@@ -391,3 +550,13 @@ def test_probe_affine_matches_plain(card, shape):
     got = cache_key_probe.probe_affine(x)
     assert cache_key_probe.probe_affine.launches == before + (x.numel() > 0)
     assert torch.equal(got, cache_key_probe.probe_affine_plain(x))
+
+
+@pytest.mark.parametrize("offset,n", [(1, 1027), (2, 5), (3, 4096), (4, 1_000_001)])
+def test_probe_affine_on_views_off_the_16_byte_grid(card, offset, n):
+    # the kernel loads 16 bytes a thread only where the arrays allow it
+    whole = torch.randn(n + offset, generator=torch.Generator().manual_seed(n)).to(card)
+    x = whole[offset:]
+    assert (x.data_ptr() % 16 == 0) == (offset == 4)
+    assert torch.equal(cache_key_probe.probe_affine(x),
+                       cache_key_probe.probe_affine_plain(x))
