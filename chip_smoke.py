@@ -11,9 +11,13 @@ csrc`` (nvcc, at first use), then:
    card and times both (CUDA events, median), beside the least time the
    card could take for the same work (``bound_ms``) and, where one PyTorch
    call computes the same function, that call's time (``library_ms``):
-   prefix sum and expansion on the flagship frame, bit-equal; the prefix
+   prefix sum on the flagship frame, bit-equal; the prefix
    sum again at 67,108,864 values, where the device and not the host's
    dispatch sets the time, and on one value, as the host's cost of a launch;
+   the expansion (bit-equal) and its transpose, the segment sum (within
+   ``SEGSUM_ROW_TOL`` of the row's scale, equal run to run, zero on empty
+   splats), on the uniform and clustered flagship tables and, in phase 6,
+   the 1080p scene's, each also timed on the device alone (torch.profiler);
    the radix sort's histogram and scatter on the frame's own 6.29M packed
    keys, every pass exact, the scatter's stored bytes over its time a pass,
    the offset table between them (one launch of the prefix-sum kernel)
@@ -25,8 +29,7 @@ csrc`` (nvcc, at first use), then:
    values, there also 40 calls back to back and on the device alone
    (torch.profiler) beside ``torch.add`` (these two run last, behind every
    time of the main paths);
-   segment sum
-   on the flagship frame's shapes with a seeded cotangent; compositor
+   compositor
    forward (image max abs diff <= 5e-3 with <= 10 px above 1e-3) and
    backward (per row within a stated share of the row's largest gradient,
    columns past the last tile zero) on the uniform flagship frame's sorted
@@ -354,15 +357,15 @@ class Frame:
         return self.image(kc.composite_plain(sf, bounds, ox, oy, **ckw))
 
 
-def check_scan_and_expand(frame, results):
-    """Kernels 1, 2 and 3 at the flagship frame's shapes."""
+def check_scan(frame, results):
+    """Kernel 1 at the flagship frame's shape, at a large size and on one
+    value."""
     import torch
 
-    from openglgaussiansplattingrenderer_tpu_torch.ops.kernels import records as kr
     from openglgaussiansplattingrenderer_tpu_torch.ops.kernels import scan as ks
 
-    table, counts, kw = frame.table()
-    n, cap = counts.numel(), kw["capacity"]
+    _, counts, _ = frame.table()
+    n = counts.numel()
     cum = ks.cumsum(counts)
     cum_p = ks.cumsum_plain(counts)
     assert torch.equal(cum, cum_p), "cumsum kernel differs from torch.cumsum"
@@ -404,22 +407,44 @@ def check_scan_and_expand(frame, results):
         f"n={LARGE_SCAN} exact; kernel {large['ms']:.4f} ms, torch.cumsum "
         f"{large['library_ms']:.4f} ms, bound {large['bound_ms']:.4f} ms")
 
+
+def check_expand_segsum(name, frame):
+    """Kernels 2 and 3 on the frame's own splat table: the expansion
+    bit-equal to its plain version, the segment sum within SEGSUM_ROW_TOL of
+    the row's scale, equal from run to run and zero on empty splats; each
+    timed by CUDA events around one call and on the device alone
+    (torch.profiler). Returns the two kernels' result rows."""
+    import torch
+
+    from openglgaussiansplattingrenderer_tpu_torch.ops.kernels import records as kr
+    from openglgaussiansplattingrenderer_tpu_torch.ops.kernels import scan as ks
+
+    def us(v):
+        return "not measured" if v is None else f"{v:.2f}"
+
+    table, counts, kw = frame.table()
+    n, cap = counts.numel(), kw["capacity"]
+    cum = ks.cumsum(counts)
     got = kr.expand(*table, cum, **kw)
     ref = kr.expand_plain(*table, cum, **kw)
-    for name, a, b in zip(("fields", "tile", "depth"), got, ref):
-        assert torch.equal(a, b), f"expand {name} differ from the plain version"
+    for what, a, b in zip(("fields", "tile", "depth"), got, ref):
+        assert torch.equal(a, b), f"{name}: expand {what} differ from the plain version"
     err = max(float((a.double() - b.double()).abs().max()) for a, b in zip(got, ref))
+    del got, ref
     ms = cuda_ms(lambda: kr.expand(*table, cum, **kw))
+    dev_us = device_us(lambda: kr.expand(*table, cum, **kw), calls=20)
     pms = cuda_ms(lambda: kr.expand_plain(*table, cum, **kw))
     total = min(int(cum[-1]), cap)
+    empty = int((counts == 0).sum())
+    shape = dict(splats=n, capacity=cap, records=total, empty_splats=empty)
     # written: 9 fields + tile + depth a record (44 B); read: 9 fields, the
     # tile rect (4 ints), depth and the prefix sum a splat (60 B). The cull
     # costs about 60 float operations a record below total.
-    results["expand"] = dict(max_abs_err=err, ms=ms, plain_ms=pms, library_ms=None,
-                             **bound(44 * cap + 60 * n, 60 * total))
-    log(f"[2] expand  C={cap} records (total {total}) bit-equal; kernel "
-        f"{ms:.4f} ms, plain {pms:.4f} ms, bound "
-        f"{results['expand']['bound_ms']:.4f} ms")
+    expand = dict(max_abs_err=err, ms=ms, device_us=dev_us, plain_ms=pms,
+                  library_ms=None, **bound(44 * cap + 60 * n, 60 * total), **shape)
+    log(f"[2] expand {name}: C={cap} records (total {total}), {n} splats ({empty} "
+        f"empty) bit-equal; kernel {ms:.4f} ms, on the device alone {us(dev_us)} us, "
+        f"plain {pms:.4f} ms, bound {expand['bound_ms']:.4f} ms")
 
     gen = torch.Generator(device=cum.device).manual_seed(5)
     g = torch.randn((kr.NUM_FIELDS, cap), generator=gen, device=cum.device)
@@ -427,10 +452,12 @@ def check_scan_and_expand(frame, results):
     ref = kr.segsum_plain(g, cum)
     scale = ref.abs().amax(dim=1).clamp_min(1e-30)
     rel = float(((got - ref).abs().amax(dim=1) / scale).max())
-    assert rel <= SEGSUM_ROW_TOL, f"segsum vs plain: {rel:.3e} of the row's scale"
-    empty = torch.nonzero(counts == 0).squeeze(1)
-    assert empty.numel() and not got[:, empty].any(), "segsum: empty splats not zero"
+    assert rel <= SEGSUM_ROW_TOL, f"{name}: segsum vs plain: {rel:.3e} of the row's scale"
+    assert torch.equal(got, kr.segsum(g, cum)), f"{name}: segsum differs run to run"
+    zero = torch.nonzero(counts == 0).squeeze(1)
+    assert zero.numel() and not got[:, zero].any(), f"{name}: empty splats not zero"
     ms = cuda_ms(lambda: kr.segsum(g, cum))
+    dev_us = device_us(lambda: kr.segsum(g, cum), calls=20)
     pms = cuda_ms(lambda: kr.segsum_plain(g, cum))
     ids = torch.searchsorted(cum, torch.arange(total, dtype=torch.int32,
                                                device=cum.device), right=True)
@@ -438,12 +465,14 @@ def check_scan_and_expand(frame, results):
     lms = cuda_ms(lambda: lib_out.zero_().index_add_(1, ids, g[:, :total]))
     # read: 36 B a record below total and the prefix sum; written: 36 B a
     # splat; one add a value read
-    results["segsum"] = dict(
-        max_abs_err=float((got - ref).abs().max()), max_row_rel_err=rel, ms=ms,
-        plain_ms=pms, library_ms=lms, **bound(36 * total + 40 * n, 9 * total))
-    log(f"[2] segsum  C={cap} -> n={n}: {rel:.3e} of the row's scale; kernel "
-        f"{ms:.4f} ms, plain {pms:.4f} ms, index_add_ {lms:.4f} ms, bound "
-        f"{results['segsum']['bound_ms']:.4f} ms")
+    segsum = dict(max_abs_err=float((got - ref).abs().max()), max_row_rel_err=rel,
+                  ms=ms, device_us=dev_us, plain_ms=pms, library_ms=lms,
+                  **bound(36 * total + 40 * n, 9 * total), **shape)
+    log(f"[2] segsum {name}: C={cap} -> n={n}: {rel:.3e} of the row's scale, equal "
+        f"run to run; kernels {ms:.4f} ms, on the device alone {us(dev_us)} us, "
+        f"plain {pms:.4f} ms, index_add_ {lms:.4f} ms, bound "
+        f"{segsum['bound_ms']:.4f} ms")
+    return expand, segsum
 
 
 def check_radix(frame, results):
@@ -1045,7 +1074,13 @@ def main() -> int:
     # ---- 2. kernels against their plain versions --------------------------
     results = {}
     with torch.no_grad():
-        check_scan_and_expand(frames["uniform"], results)
+        check_scan(frames["uniform"], results)
+        # kernels 2 and 3 on the uniform frame's table, the main path's; the
+        # clustered frame's and (phase 6) the 1080p scene's ride along
+        results["expand"], results["segsum"] = check_expand_segsum(
+            "uniform flagship", frames["uniform"])
+        cl_exp, cl_seg = check_expand_segsum("clustered flagship", frames["clustered"])
+        results["expand"]["clustered"], results["segsum"]["clustered"] = cl_exp, cl_seg
         check_radix(frames["uniform"], results)
         # kernels 4 and 5 at the main path's shapes; the gate scene's and
         # the clustered frame's numbers ride along under their names
@@ -1114,6 +1149,10 @@ def main() -> int:
         Camera(0.0, 0.0, -8.0, width=MSPLATS_W, height=MSPLATS_H), mcfg0, dev)
     msplats.cfg = autotune_capacity(msplats.params, *msplats.args[:6], MSPLATS_W,
                                     MSPLATS_H, mcfg0)
+    with torch.no_grad():
+        hd_exp, hd_seg = check_expand_segsum(f"{MSPLATS} splats {MSPLATS_W}x{MSPLATS_H}",
+                                             msplats)
+    results["expand"]["hd"], results["segsum"]["hd"] = hd_exp, hd_seg
     check_fwdbwd(f"{MSPLATS} splats {MSPLATS_W}x{MSPLATS_H}", msplats)
     stage_times(f"{MSPLATS} splats {MSPLATS_W}x{MSPLATS_H}", msplats)
     check_small_gradients(dev)

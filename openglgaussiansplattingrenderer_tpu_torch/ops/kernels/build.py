@@ -38,12 +38,13 @@ SIGNATURES = {
     "gs_cumsum_tile": [],
     "gs_cumsum_i32": [_P, _P, _P, _I, _P],
     "gs_prefix_offsets_i32": [_P, _P, _P, _I, _I, _L, _L, _P],
+    "gs_records_items": [],
     "gs_expand": [_P, _P, _P, _P, _P, _I, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P],
     "gs_composite_max_pixels": [],
     "gs_composite_fwd": [_P, _I, _P, _P, _P, _P, _I, _I, _I, _I, _F, _F, _F, _F, _P],
     "gs_composite_bwd": [_P, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _F,
                          _F, _F, _P],
-    "gs_segsum": [_P, _I, _P, _I, _P, _P],
+    "gs_segsum": [_P, _I, _P, _I, _P, _P, _P],
     "gs_radix_chunk": [],
     "gs_radix_hist": [_P, _I, _I, _I, _P, _P],
     "gs_radix_scatter": [_P, _P, _I, _I, _I, _I, _P, _P, _P, _P],

@@ -21,6 +21,7 @@ and a float32 depth per record.
 
 from __future__ import annotations
 
+import functools
 from typing import Tuple
 
 import numpy as np
@@ -29,6 +30,22 @@ import torch
 from openglgaussiansplattingrenderer_tpu_torch.ops.kernels import build
 
 NUM_FIELDS = 9
+# Merged items (records and splat ends) a piece of the partition of the
+# expansion and the segment sum holds: ``kItems`` of
+# ``csrc/records_common.cuh``.
+PARTITION_ITEMS = 1024
+
+
+@functools.lru_cache(maxsize=1)
+def _library():
+    """The kernel library, once its partition size is checked against
+    ``PARTITION_ITEMS``, which sizes the segment sum's carry slots."""
+    lib = build.load_library()
+    if lib.gs_records_items() != PARTITION_ITEMS:
+        raise RuntimeError(f"records: the kernels partition by "
+                           f"{lib.gs_records_items()} items, PARTITION_ITEMS "
+                           f"says {PARTITION_ITEMS}")
+    return lib
 
 
 def round_up(x: int, m: int) -> int:
@@ -103,7 +120,7 @@ def expand_fwd(fields, tile_min, tile_ext, depth, cum_incl, *, capacity, gx,
     out_f = torch.empty((NUM_FIELDS, capacity), dtype=torch.float32, device=dev)
     out_t = torch.empty(capacity, dtype=torch.int32, device=dev)
     out_d = torch.empty(capacity, dtype=torch.float32, device=dev)
-    lib = build.load_library()
+    lib = _library()
     build.check("expand", lib.gs_expand(
         fields.data_ptr(), tile_min.data_ptr(), tile_ext.data_ptr(),
         depth.data_ptr(), cum_incl.data_ptr(), n, out_f.data_ptr(),
@@ -130,8 +147,10 @@ def segsum(g: torch.Tensor, cum_incl: torch.Tensor) -> torch.Tensor:
     """Transpose of the expansion: ``out[:, s]`` is the sum of the record
     cotangents ``g`` (9, C) over splat s's span [cum_excl[s], min(cum_incl[s],
     total)), total = min(cum_incl[-1], C); zero for a splat with no
-    records. Spans are contiguous, so each sum has a fixed order and the
-    result is the same from run to run. Returns (9, N) float32."""
+    records. The kernel sums in a fixed order, so the result is the same
+    from run to run. On CUDA tensors it takes two launches (the sums of
+    each piece of the partition, then the carries of the splats cut between
+    pieces), both counted in ``segsum.launches``. Returns (9, N) float32."""
     n = cum_incl.shape[0]
     build.expect("segsum g", g, torch.float32, (NUM_FIELDS, None))
     build.expect("segsum cum_incl", cum_incl, torch.int32, (n,))
@@ -140,11 +159,16 @@ def segsum(g: torch.Tensor, cum_incl: torch.Tensor) -> torch.Tensor:
     out = torch.empty((NUM_FIELDS, n), dtype=torch.float32, device=g.device)
     if n == 0:
         return out
-    lib = build.load_library()
+    c = g.shape[1]
+    lib = _library()
+    # a carry (9 floats) and a first-end splat (int32) for each piece of
+    # the n splat ends and c records
+    pieces = -(-(n + c) // PARTITION_ITEMS)
+    scratch = torch.empty(10 * pieces, dtype=torch.float32, device=g.device)
     build.check("segsum", lib.gs_segsum(
-        g.data_ptr(), g.shape[1], cum_incl.data_ptr(), n, out.data_ptr(),
-        build.stream_ptr()))
-    segsum.launches += 1
+        g.data_ptr(), c, cum_incl.data_ptr(), n, out.data_ptr(),
+        scratch.data_ptr(), build.stream_ptr()))
+    segsum.launches += 2     # the sums, then the carries of cut splats
     return out
 
 

@@ -18,7 +18,12 @@ segment sum, run-to-run equality, training on the card, the single-pass
 prefix sum at tile edges, on unaligned views, on wrapping sums and 200
 launches running, the radix sort's offset table, the radix-sort kernels at
 ragged sizes, on sorted, constant and one-key-a-digit inputs and both digit
-widths, the single-key sort paths of the frame, and the two probe kernels.
+widths, the single-key sort paths of the frame, the two probe kernels, and
+the expansion and the segment sum on the partition cases of
+``test_torch_records_partition.py`` (runs of empty splats longer than
+several blocks' share, a splat over three blocks, ``total == capacity``,
+overflow, one splat, a capacity that is not a multiple of 4, inputs off the
+16-byte grid).
 """
 
 import dataclasses
@@ -37,6 +42,7 @@ from openglgaussiansplattingrenderer_tpu_torch.ops.kernels import scan as ks
 from openglgaussiansplattingrenderer_tpu_torch.probes import bucketer_probe, cache_key_probe
 from openglgaussiansplattingrenderer_tpu_torch.render import render_arrays, render_stats
 from openglgaussiansplattingrenderer_tpu_torch.train import trainer
+from test_torch_records_partition import CASES, GX, GY, PH, PW, partition_case, splat_table
 
 pytestmark = pytest.mark.cuda
 
@@ -258,12 +264,69 @@ def test_segsum_kernel_matches_plain(card, capacity):
     cot = torch.randn((9, capacity), generator=g).to(card)
     before = kr.segsum.launches
     got, ref = kr.segsum(cot, cum), kr.segsum_plain(cot, cum)
-    assert kr.segsum.launches == before + 1
+    assert kr.segsum.launches == before + 2            # the sums, the carries
     scale = ref.abs().amax(dim=1, keepdim=True).clamp_min(1e-30)
     assert float(((got - ref).abs() / scale).max()) <= 1e-5
     assert not got[:, (counts == 0).to(card)].any()
     assert torch.equal(got, kr.segsum(cot, cum))
     assert kr.segsum(cot, cum[:0]).shape == (9, 0)
+
+
+def _off_grid(t):
+    """A contiguous copy of ``t`` whose data starts 4 bytes past the 16-byte
+    grid, so that no row of it is 16-byte aligned."""
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    view = buf[1:].view(t.shape)
+    view.copy_(t)
+    assert view.data_ptr() % 16 and view.is_contiguous()
+    return view
+
+
+@pytest.mark.parametrize("name", CASES + ["off_grid_inputs"])
+def test_expand_kernel_bit_equal_to_plain_on_the_partition_cases(card, name):
+    counts, capacity = partition_case(name if name in CASES else "overflow")
+    table = [torch.from_numpy(a).to(card) for a in splat_table(counts, 1)]
+    cum = torch.from_numpy(np.cumsum(counts).astype(np.int32)).to(card)
+    if name == "off_grid_inputs":
+        table, cum = [_off_grid(t) for t in table], _off_grid(cum)
+    kw = dict(capacity=capacity, gx=GX, num_tiles=GX * GY, pw=PW, ph=PH,
+              alpha_min=1 / 255)
+    before = kr.expand.launches
+    with torch.no_grad():
+        got = kr.expand(*table, cum, **kw)
+    assert kr.expand.launches == before + 1
+    want = kr.expand_plain(*table, cum, **kw)
+    for what, a, b in zip(("fields", "tile", "depth"), got, want):
+        assert torch.equal(a, b), what
+    total = min(int(counts.sum()), capacity)
+    assert (got[1][total:] == GX * GY).all() and not got[0][:, total:].any()
+    assert 0 < int((got[1][:total] < GX * GY).sum()) < total or name == "one_splat"
+
+
+@pytest.mark.parametrize("name", CASES + ["off_grid_g"])
+def test_segsum_kernel_matches_plain_on_the_partition_cases(card, name):
+    counts, capacity = partition_case(name if name in CASES else "large_splat")
+    cum = torch.from_numpy(np.cumsum(counts).astype(np.int32)).to(card)
+    rng = np.random.default_rng(3)
+    # centred on 1, so that no splat's sum cancels: 1e-5 of the row's scale
+    # then measures the kernel's rounding, not the conditioning of one sum
+    normal = torch.from_numpy(1.0 + rng.standard_normal((9, capacity)).astype(np.float32))
+    # multiples of 1/64: every order of summing a splat's records is exact,
+    # so a record misassigned, repeated or dropped shows as a difference
+    dyadic = torch.from_numpy((rng.integers(-512, 513, (9, capacity)) / 64)
+                              .astype(np.float32))
+    empty = torch.from_numpy(counts == 0).to(card)
+    for cot in (normal.to(card), dyadic.to(card)):
+        if name == "off_grid_g":
+            cot = _off_grid(cot)
+        before = kr.segsum.launches
+        got, ref = kr.segsum(cot, cum), kr.segsum_plain(cot, cum)
+        assert kr.segsum.launches == before + 2
+        scale = ref.abs().amax(dim=1, keepdim=True).clamp_min(1e-30)
+        assert float(((got - ref).abs() / scale).max()) <= 1e-5
+        assert not got[:, empty].any()
+        assert torch.equal(got, kr.segsum(cot, cum))
+    assert torch.equal(got, ref)                         # the dyadic cotangent
 
 
 def _small(device, n=150, w=128, h=128):
