@@ -18,13 +18,14 @@ csrc`` (nvcc, at first use), then:
    ``SEGSUM_ROW_TOL`` of the row's scale, equal run to run, zero on empty
    splats), on the uniform and clustered flagship tables and, in phase 6,
    the 1080p scene's, each also timed on the device alone (torch.profiler);
-   the radix sort's histogram and scatter on the frame's own 6.29M packed
-   keys, every pass exact, the scatter's stored bytes over its time a pass,
-   the offset table between them (one launch of the prefix-sum kernel)
-   exact against its plain version, and the whole sort against
-   ``torch.sort(stable=True)``
-   element for element; the bucketing-level probe kernel exact on 64
-   chunks and timed through its probe at 6,291,456 records, and the
+   the onesweep radix sort on the frame's own 6.29M packed keys: the
+   counts of every pass (one launch) and each pass's scatter exact, both
+   also on the device alone, the scatter's stored bytes over its device
+   time a pass, and the whole sort and the sort of the tile ids against
+   ``torch.sort(stable=True)`` element for element, each between events and
+   on the device alone; the bucketing-level probe kernel exact on 64
+   chunks and timed through its probe, between events and on the device
+   alone at 6,291,456 records, and the
    build-cache probe with its kernel, timed at (8, 128) and at 1,000,003
    values, there also 40 calls back to back and on the device alone
    (torch.profiler) beside ``torch.add`` (these two run last, behind every
@@ -48,7 +49,10 @@ csrc`` (nvcc, at first use), then:
    the q16 inference mode within 0.01 of the f32 frame), each with its own
    launch counts, and q16 against f32 on a 512-splat scene within 2e-3;
 4. prints each flagship scene's per-stage device times of one forward +
-   backward (CUDA events), and in phase 6 the 1080p scene's;
+   backward (CUDA events), and in phase 6 the 1080p scene's; then the
+   uniform frame's record sort of the packed key stage by stage, on the
+   radix route and on the torch.sort route, between events and on the
+   device alone;
 5. drives the training path: five Adam steps of ``make_train_step`` (L1 +
    D-SSIM, per-splat densification statistic) on the uniform flagship scene
    with perturbed colours against its clean render, counters reset just
@@ -123,8 +127,8 @@ KERNELS = {
                   f"{TPU_PKG}/ops/pallas/composite.py:237"),
     "composite_bwd": (f"{PKG}/csrc/composite_bwd.cu",
                       f"{TPU_PKG}/ops/pallas/composite.py:385"),
-    "radix_hist": (f"{PKG}/csrc/radix_sort.cu",
-                   f"{TPU_PKG}/ops/pallas/radix_sort.py:76"),
+    "radix_counts": (f"{PKG}/csrc/radix_sort.cu",
+                     f"{TPU_PKG}/ops/pallas/radix_sort.py:76"),
     "radix_scatter": (f"{PKG}/csrc/radix_sort.cu",
                       f"{TPU_PKG}/ops/pallas/radix_sort.py:133"),
     "bucketer_level": (f"{PKG}/csrc/bucketer_probe.cu", "scripts/bucketer_probe.py:68"),
@@ -249,7 +253,7 @@ def kernel_wrappers():
 
     return {"cumsum": ks.cumsum, "expand": kr.expand, "segsum": kr.segsum,
             "composite": kc.composite, "composite_bwd": kc.composite_bwd,
-            "radix_hist": rx.radix_hist, "radix_scatter": rx.radix_scatter,
+            "radix_counts": rx.radix_counts, "radix_scatter": rx.radix_scatter,
             "bucketer_level": bucketer_probe.bucketer_level,
             "probe_affine": cache_key_probe.probe_affine}
 
@@ -476,14 +480,19 @@ def check_expand_segsum(name, frame):
 
 
 def check_radix(frame, results):
-    """Kernels 6 and 7 on the uniform flagship frame's own packed keys: every
-    pass of the sort against the plain versions, exactly, and the whole
-    sort against torch.sort(stable=True), element for element."""
+    """Kernels 6 and 7 on the uniform flagship frame's own packed keys: the
+    counts of every pass and every pass of the sort against the plain
+    versions, exactly, each timed between CUDA events and on the device
+    alone; the whole sort, and the sort of the hoisted path's tile key,
+    against torch.sort(stable=True), element for element."""
     import torch
 
     from openglgaussiansplattingrenderer_tpu_torch.ops.kernels import radix_sort as rx
     from openglgaussiansplattingrenderer_tpu_torch.ops.kernels import records as kr
     from openglgaussiansplattingrenderer_tpu_torch.ops.kernels import scan as ks
+
+    def us(v):
+        return "not measured" if v is None else f"{v:.2f}"
 
     table, counts, ekw = frame.table()
     _, rec_t, rec_d = kr.expand(*table, ks.cumsum(counts), **ekw)
@@ -493,47 +502,46 @@ def check_radix(frame, results):
     c, dev = keys.numel(), keys.device
     idx = torch.arange(c, dtype=torch.int32, device=dev)
     bits, passes = rx.BITS, 32 // rx.BITS
+    K = 1 << bits
 
     def same(got, ref, what):
         assert torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1]), (
             f"radix_scatter {what}: differs from the plain version")
 
+    def plain_pass(k, v, cnt, shift, b=bits):
+        return rx.radix_scatter_plain(k, v, rx.chunk_offsets_plain(k, cnt, shift, b),
+                                      shift, b)
+
+    cnt = rx.radix_counts(keys, 32)
+    assert torch.equal(cnt, rx.radix_counts_plain(keys, 32)), (
+        "radix_counts differs from the plain version")
+    cnt4 = rx.radix_counts(keys, 32, 4)
+    assert torch.equal(cnt4, rx.radix_counts_plain(keys, 32, 4)), "radix_counts, 4 bits"
+    counts_ms = cuda_ms(lambda: rx.radix_counts(keys, 32))
+    counts_us = device_us(lambda: rx.radix_counts(keys, 32))
+    counts_plain = cuda_ms(lambda: rx.radix_counts_plain(keys, 32))
+    at = torch.cat([(keys >> (p * bits) & (K - 1)) + p * K for p in range(passes)])
+    bincount = cuda_ms(lambda: torch.bincount(at, minlength=passes * K))
+    del at
     k, v = keys, idx[None, :].contiguous()
-    hist_ms, scat_ms, offs_ms = [], [], []
+    scat_ms, scat_us = [], []
     for p in range(passes):
         shift = p * bits
-        cnt = rx.radix_hist(k, shift)
-        assert torch.equal(cnt, rx.radix_hist_plain(k, shift)), (
-            f"radix_hist pass {p}: differs from the plain version")
-        offs = rx._prefix_offsets(cnt)
-        assert torch.equal(offs, rx._prefix_offsets_plain(cnt)), (
-            f"_prefix_offsets pass {p}: differs from the plain version")
-        got = rx.radix_scatter(k, v, offs, shift)
-        same(got, rx.radix_scatter_plain(k, v, offs, shift), f"pass {p}")
-        hist_ms.append(cuda_ms(lambda: rx.radix_hist(k, shift)))
-        offs_ms.append(cuda_ms(lambda: rx._prefix_offsets(cnt)))
-        scat_ms.append(cuda_ms(lambda: rx.radix_scatter(k, v, offs, shift)))
+        got = rx.radix_scatter(k, v, cnt[p], shift)
+        same(got, plain_pass(k, v, cnt[p], shift), f"pass {p}")
+        scat_ms.append(cuda_ms(lambda: rx.radix_scatter(k, v, cnt[p], shift)))
+        scat_us.append(device_us(lambda: rx.radix_scatter(k, v, cnt[p], shift)))
         if p == 0:
-            hist_plain = cuda_ms(lambda: rx.radix_hist_plain(k, shift))
-            at = ((torch.arange(c, device=dev) // rx.CHUNK << bits)
-                  + (k & ((1 << bits) - 1)))
-            bincount = cuda_ms(lambda: torch.bincount(at, minlength=cnt.numel()))
-            scat_plain = cuda_ms(lambda: rx.radix_scatter_plain(k, v, offs, shift))
-            offs_plain = cuda_ms(lambda: rx._prefix_offsets_plain(cnt))
+            scat_plain = cuda_ms(lambda: plain_pass(k, v, cnt[0], 0))
             # nine payload rows, and the 4-bit digit of the JAX package
             gen = torch.Generator(device=dev).manual_seed(8)
             v9 = torch.randn((9, c), generator=gen, device=dev).view(torch.int32)
-            same(rx.radix_scatter(k, v9, offs, shift),
-                 rx.radix_scatter_plain(k, v9, offs, shift), "nine rows")
-            nine_ms = cuda_ms(lambda: rx.radix_scatter(k, v9, offs, shift))
-            del v9, at
-            cnt4 = rx.radix_hist(k, 0, 4)
-            assert torch.equal(cnt4, rx.radix_hist_plain(k, 0, 4)), "radix_hist, 4 bits"
-            offs4 = rx._prefix_offsets(cnt4)
-            assert torch.equal(offs4, rx._prefix_offsets_plain(cnt4)), (
-                "_prefix_offsets, 4 bits")
-            same(rx.radix_scatter(k, v, offs4, 0, 4),
-                 rx.radix_scatter_plain(k, v, offs4, 0, 4), "4 bits")
+            same(rx.radix_scatter(k, v9, cnt[0], 0), plain_pass(k, v9, cnt[0], 0),
+                 "nine rows")
+            nine_ms = cuda_ms(lambda: rx.radix_scatter(k, v9, cnt[0], 0))
+            del v9
+            same(rx.radix_scatter(k, v, cnt4[0], 0, 4), plain_pass(k, v, cnt4[0], 0, 4),
+                 "4 bits")
         k, v = got
     rk, ri = torch.sort(key64, stable=True)
     assert torch.equal(kr.u32_values(k), rk) and torch.equal(v[0].to(torch.int64), ri), (
@@ -542,61 +550,105 @@ def check_radix(frame, results):
     assert torch.equal(sk, k) and torch.equal(si, v[0]), (
         "radix_sort differs from its passes")
     whole = cuda_ms(lambda: rx.radix_sort(keys, (idx,), 32))
+    whole_us = device_us(lambda: rx.radix_sort(keys, (idx,), 32))
     sort64 = cuda_ms(lambda: torch.sort(key64, stable=True))
+    sort64_us = device_us(lambda: torch.sort(key64, stable=True))
     # the hoisted path's key: the tile id alone, which int32 holds
     kb = max(1, int(frame.cfg.num_tiles).bit_length())
+    tile_passes = -(-kb // bits)
     st, (sti,) = rx.radix_sort(rec_t, (idx,), kb)
     rt, rti = torch.sort(rec_t, stable=True)
     assert torch.equal(st, rt) and torch.equal(sti.to(torch.int64), rti), (
         "radix_sort of the tile ids differs from torch.sort(stable=True)")
     whole_tile = cuda_ms(lambda: rx.radix_sort(rec_t, (idx,), kb))
+    whole_tile_us = device_us(lambda: rx.radix_sort(rec_t, (idx,), kb))
     sort32 = cuda_ms(lambda: torch.sort(rec_t, stable=True))
 
-    n_chunks = -(-c // rx.CHUNK)
-    table_bytes = 4 * n_chunks * (1 << bits)
-    # histogram: each key read once, the count table written; scatter: key and
-    # one payload row read and written, the offset table read; a shift, a
-    # mask and a rank a key
-    results["radix_hist"] = dict(
-        max_abs_err=0.0, ms=statistics.mean(hist_ms), pass_ms=hist_ms,
-        plain_ms=hist_plain, library_ms=bincount, **bound(4 * c + table_bytes, c))
-    # what a pass stores, key and payload row, over its time: near the
+    # counts: each key read once, the table written; a shift, a mask and an
+    # add a key a pass. Scatter: key and one payload row read and written,
+    # the pass's counts read; a shift, a mask and a rank a key. The whole
+    # sort: the counts and every pass
+    results["radix_counts"] = dict(
+        max_abs_err=0.0, ms=counts_ms, device_us=counts_us, plain_ms=counts_plain,
+        library_ms=bincount, library_is="torch.bincount of every pass's digit, offset "
+        "by the pass", **bound(4 * c + 4 * passes * K, passes * c))
+    # what a pass stores, key and payload row, over its device time: near the
     # memory rate only if runs of equal digits leave as whole sectors
     stored = 4 * c * (1 + v.shape[0])
-    scat_gbs = [stored / (t * 1e-3) / 1e9 for t in scat_ms]
-    results["cumsum"]["offset_table"] = dict(
-        shape=[n_chunks, 1 << bits], ms=statistics.mean(offs_ms), pass_ms=offs_ms,
-        plain_ms=offs_plain, **bound(2 * table_bytes, n_chunks << bits))
+    scat_gbs = [None if t is None else stored / (t * 1e-6) / 1e9 for t in scat_us]
     results["radix_scatter"] = dict(
         max_abs_err=0.0, ms=statistics.mean(scat_ms), pass_ms=scat_ms,
-        pass_stored_gb_per_s=scat_gbs, nine_rows_ms=nine_ms,
+        device_us=(None if None in scat_us else statistics.mean(scat_us)),
+        pass_device_us=scat_us, pass_stored_gb_per_s=scat_gbs, nine_rows_ms=nine_ms,
         nine_rows_stored_gb_per_s=40 * c / (nine_ms * 1e-3) / 1e9,
         plain_ms=scat_plain, library_ms=sort64,
         library_is="torch.sort(stable=True) of the int64 key: all passes at once",
-        radix_sort_ms=whole, radix_sort_tile_key_ms=whole_tile,
-        torch_sort_int32_tile_key_ms=sort32, **bound(16 * c + table_bytes, 3 * c))
-    log(f"[2] radix_hist  C={c} keys, {bits}-bit digits, {n_chunks} chunks: every "
-        f"pass exact (and 4 bits once); kernel ms a pass "
-        + " ".join(f"{t:.4f}" for t in hist_ms)
-        + f", plain {hist_plain:.4f} ms, torch.bincount {bincount:.4f} ms, bound "
-        f"{results['radix_hist']['bound_ms']:.4f} ms")
+        library_device_us=sort64_us,
+        radix_sort=dict(ms=whole, device_us=whole_us, passes=passes,
+                        **bound(4 * c + passes * 16 * c, (passes + 3 * passes) * c)),
+        radix_sort_tile_key=dict(ms=whole_tile, device_us=whole_tile_us,
+                                 passes=tile_passes, torch_sort_int32_ms=sort32,
+                                 **bound(4 * c + tile_passes * 16 * c,
+                                         4 * tile_passes * c)),
+        **bound(16 * c + 4 * K, 3 * c))
+    log(f"[2] radix_counts C={c} keys, {passes} passes of {bits} bits, one launch: "
+        f"exact (and 4 bits); kernel {counts_ms:.4f} ms, on the device alone "
+        f"{us(counts_us)} us, plain {counts_plain:.4f} ms, torch.bincount "
+        f"{bincount:.4f} ms, bound {results['radix_counts']['bound_ms']:.4f} ms")
     log(f"[2] radix_scatter one payload row: every pass exact (and nine rows, and "
         f"4 bits, once); kernel ms a pass " + " ".join(f"{t:.4f}" for t in scat_ms)
-        + "; stored GB/s a pass " + " ".join(f"{g:.1f}" for g in scat_gbs)
+        + "; on the device alone us a pass " + " ".join(us(t) for t in scat_us)
+        + "; stored GB/s a pass " + " ".join(
+            "not measured" if g is None else f"{g:.1f}" for g in scat_gbs)
         + f"; with nine rows {nine_ms:.4f} ms "
         f"({results['radix_scatter']['nine_rows_stored_gb_per_s']:.1f} GB/s stored), "
         f"plain {scat_plain:.4f} ms, bound "
         f"{results['radix_scatter']['bound_ms']:.4f} ms")
-    log(f"[2] _prefix_offsets ({n_chunks}, {1 << bits}) -> ({n_chunks + 1}, "
-        f"{1 << bits}), one launch of the prefix-sum kernel, every pass exact "
-        f"(and 4 bits once); ms a pass " + " ".join(f"{t:.4f}" for t in offs_ms)
-        + f", plain {offs_plain:.4f} ms, bound "
-        f"{results['cumsum']['offset_table']['bound_ms']:.4f} ms")
     log(f"[2] radix_sort of the {c} packed keys with the source index, equal to "
-        f"torch.sort(stable=True) element for element: {whole:.4f} ms ({passes} "
-        f"passes) against torch.sort on the int64 key {sort64:.4f} ms; of the "
-        f"tile ids alone ({kb} bits): {whole_tile:.4f} ms against torch.sort on "
-        f"int32 {sort32:.4f} ms")
+        f"torch.sort(stable=True) element for element: {whole:.4f} ms, on the device "
+        f"alone {us(whole_us)} us (1 + {passes} launches, one clear; bound "
+        f"{results['radix_scatter']['radix_sort']['bound_ms']:.4f} ms) against "
+        f"torch.sort on the int64 key {sort64:.4f} ms, {us(sort64_us)} us; of the "
+        f"tile ids alone ({kb} bits, {tile_passes} passes): {whole_tile:.4f} ms, "
+        f"{us(whole_tile_us)} us against torch.sort on int32 {sort32:.4f} ms")
+
+
+def sort_walk(frame):
+    """Phase [4]: ``fastpath.sort_records`` of the packed key, stage by
+    stage, on the radix route and on the torch.sort route
+    (``scripts/torch_sort_walk.py``), each stage between CUDA events and on
+    the device alone."""
+    import importlib.util
+    from pathlib import Path
+
+    import torch
+
+    from openglgaussiansplattingrenderer_tpu_torch.ops.kernels import radix_sort as rx
+    from openglgaussiansplattingrenderer_tpu_torch.ops.kernels import records as kr
+    from openglgaussiansplattingrenderer_tpu_torch.ops.kernels import scan as ks
+
+    path = Path(__file__).resolve().parent / "scripts" / "torch_sort_walk.py"
+    spec = importlib.util.spec_from_file_location("torch_sort_walk", path)
+    walk = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(walk)
+    t = frame.cfg.num_tiles
+    with torch.no_grad():
+        table, counts, ekw = frame.table()
+        rec_f, rec_t, rec_d = kr.expand(*table, ks.cumsum(counts), **ekw)
+        del table
+        radix, sk, si = walk.walk_stages(rx, kr, rec_t, rec_d, rec_f, t)
+        lax, lk, li = walk.lax_stages(kr, rec_t, rec_d, rec_f, t)
+        assert torch.equal(sk, lk) and torch.equal(si.to(torch.int64), li), (
+            "sort walk: the radix route differs from torch.sort(stable=True)")
+        for route, stages in (("packed + radix", radix), ("packed torch.sort", lax)):
+            rows = walk.timed(stages, sys.modules[__name__])
+            log(f"[4] uniform {route} sort_records stages (ms between events / us "
+                f"on the device alone): " + ", ".join(
+                    f"{k} {v['ms']:.4f} / "
+                    + ("not measured" if v["device_us"] is None else
+                       f"{v['device_us']:.1f}") for k, v in rows.items())
+                + f"; sums {sum(v['ms'] for v in rows.values()):.4f} ms / "
+                f"{sum(v['device_us'] or 0.0 for v in rows.values()):.1f} us")
 
 
 def check_probes(results):
@@ -620,17 +672,21 @@ def check_probes(results):
     launches = read_launches()
     rec = bp.make_records(BUCKET_C, dev)
     ms = cuda_ms(lambda: bp.bucketer_level(rec, BUCKET_K))
+    dev_us = device_us(lambda: bp.bucketer_level(rec, BUCKET_K), calls=10)
     pms = cuda_ms(lambda: bp.bucketer_level_plain(rec, BUCKET_K), reps=3, warmup=1)
     n_chunks = BUCKET_C // bp.R
     # 64 B a record read; 16 x 128 x 4 B a bucket a chunk written
     results["bucketer_level"] = dict(
-        max_abs_err=0.0, ms=ms, plain_ms=pms, library_ms=None, probe_ms=probe[
-            "bucketer_level_lower_bound_ms"],
+        max_abs_err=0.0, ms=ms, device_us=dev_us, plain_ms=pms, library_ms=None,
+        probe_ms=probe["bucketer_level_lower_bound_ms"],
         **bound(4 * bp.ROWS * BUCKET_C + 4 * bp.ROWS * bp.CARRY * BUCKET_K * n_chunks,
                 3 * BUCKET_C))
+    written = 4 * bp.ROWS * bp.CARRY * BUCKET_K * n_chunks
     log(f"[2] bucketer_level exact on 64 chunks; probe {json.dumps(probe)}; at "
-        f"C={BUCKET_C}, K={BUCKET_K}: kernel {ms:.4f} ms, plain {pms:.4f} ms, bound "
-        f"{results['bucketer_level']['bound_ms']:.4f} ms")
+        f"C={BUCKET_C}, K={BUCKET_K}: kernel {ms:.4f} ms, on the device alone "
+        + ("not measured" if dev_us is None else
+           f"{dev_us:.1f} us ({written / (dev_us * 1e-6) / 1e9:.1f} GB/s written)")
+        + f", plain {pms:.4f} ms, bound {results['bucketer_level']['bound_ms']:.4f} ms")
     del rec
 
     gen = torch.Generator(device=dev).manual_seed(9)
@@ -682,6 +738,7 @@ def check_single_key_frames(frame, img_pair, img_packed):
 
     import torch
 
+    from openglgaussiansplattingrenderer_tpu_torch.ops.kernels import radix_sort as rx
     from openglgaussiansplattingrenderer_tpu_torch.splats import inference_config
 
     packed = dataclasses.replace(frame.cfg, depth_key="packed")
@@ -697,10 +754,13 @@ def check_single_key_frames(frame, img_pair, img_packed):
         f.render()
         torch.cuda.synchronize()
         counts[name] = read_launches()
-        radix = cfg.record_sort == "radix"
-        for k in ("radix_hist", "radix_scatter"):
-            assert (counts[name][k] > 0) == radix, (
-                f"uniform {name}: {k} launched {counts[name][k]} times")
+        # one count of every pass's digits, then a scatter a pass: at the
+        # flagship's 512 tiles four passes of the packed key, two of the tile id
+        tile_kb = max(1, int(cfg.num_tiles).bit_length())
+        key_bits = 22 + tile_kb if name.startswith("packed") else tile_kb
+        want = (1, -(-key_bits // rx.BITS)) if cfg.record_sort == "radix" else (0, 0)
+        got = (counts[name]["radix_counts"], counts[name]["radix_scatter"])
+        assert got == want, f"uniform {name}: radix launches {got}, not {want}"
         log(f"[3] kernel launches of one uniform {name} frame: {counts[name]}")
         images[name], times[name] = check_frame(f"uniform {name}", f)
     assert torch.equal(images["packed+radix"], img_packed), (
@@ -1104,7 +1164,7 @@ def main() -> int:
         for k in ("cumsum", "expand", "composite"):
             assert render_launches[k] > 0, (
                 f"{k} kernel never launched on the render path")
-        for k in ("radix_hist", "radix_scatter"):
+        for k in ("radix_counts", "radix_scatter"):
             assert render_launches[k] == 0, f"{k} launched on the torch.sort path"
         sort_launches = check_single_key_frames(frames["uniform"], img_u, img_p)
         del img_p
@@ -1133,6 +1193,7 @@ def main() -> int:
     # ---- 4. stage times of one forward + backward ------------------------
     for name in ("uniform", "clustered"):
         stage_times(f"{name} pair", frames[name])
+    sort_walk(frames["uniform"])
 
     # ---- 5. the training path -------------------------------------------
     launches = check_training(frames["uniform"])
@@ -1169,7 +1230,7 @@ def main() -> int:
     # three frames (and their timing repetitions) and one packed + radix
     # frame are counted beside it
     launches.update({k: sort_launches["packed+radix"][k]
-                     for k in ("radix_hist", "radix_scatter")})
+                     for k in ("radix_counts", "radix_scatter")})
     launches.update({k: probe_launches[k] for k in ("bucketer_level", "probe_affine")})
     rows = []
     for name, (src, replaces) in KERNELS.items():

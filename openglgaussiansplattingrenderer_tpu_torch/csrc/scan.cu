@@ -1,6 +1,5 @@
 // Inclusive int32 prefix sum in one pass (chained scan with decoupled
-// look-back), and the radix sort's offset table on the same core, for
-// Hopper (sm_90a).
+// look-back), for Hopper (sm_90a).
 //
 // Replaces: openglgaussiansplattingrenderer_tpu/ops/pallas/scan.py
 //           _cumsum_kernel (a sequential TPU grid carrying one scalar
@@ -42,10 +41,6 @@
 //           blocks and the time is latency.
 //           Sums are taken in uint32, so they wrap exactly as
 //           torch.cumsum(dtype=int32) does, bit for bit.
-//           The table entry point walks the radix sort's (n_chunks, K)
-//           count table in digit-major order through its strides and writes
-//           the (n_chunks + 1, K) exclusive offsets, closing row included:
-//           phase 2 of a sort pass in one launch.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -95,16 +90,10 @@ __device__ uint32_t look_back(const volatile u64* desc, int tile, int lane) {
   }
 }
 
-// TABLE = false: out[i] = x[0] + ... + x[i], i < n.
-// TABLE = true:  x is a (rows, cols) table read through its strides in
-//   column-major order, i = col * rows + row; out is (rows + 1, cols)
-//   contiguous, out[row, col] the sum before i and out[rows, col] the sum
-//   through the column's last row.
-template <bool TABLE>
+// out[i] = x[0] + ... + x[i], i < n.
 __global__ void __launch_bounds__(kThreads)
 scan_lookback(const int32_t* __restrict__ x, int32_t* __restrict__ out,
-              u64* scratch, int n, int rows, int cols, long long stride_r,
-              long long stride_c, int vec_in, int vec_out) {
+              u64* scratch, int n, int vec_in, int vec_out) {
   __shared__ int s_tile;
   __shared__ uint32_t s_warp[kWarps];
   const int lane = threadIdx.x & 31;
@@ -116,32 +105,17 @@ scan_lookback(const int32_t* __restrict__ x, int32_t* __restrict__ out,
   const long long first = (long long)tile * kTile + warp * kWarpSpan + lane * 4;
   const bool full = (long long)(tile + 1) * kTile <= n;
 
-  uint32_t v[kVecs][4], x0[kVecs][4];
+  uint32_t v[kVecs][4];
 #pragma unroll
   for (int j = 0; j < kVecs; ++j) {
     const long long at = first + j * 128;
-    if (!TABLE && full && vec_in) {
+    if (full && vec_in) {
       const int4 q = *reinterpret_cast<const int4*>(x + at);
       v[j][0] = q.x; v[j][1] = q.y; v[j][2] = q.z; v[j][3] = q.w;
     } else {
 #pragma unroll
-      for (int k = 0; k < 4; ++k) {
-        const long long i = at + k;
-        uint32_t val = 0u;
-        if (i < n) {
-          if (TABLE) {
-            const int col = (int)(i / rows);
-            const int row = (int)(i - (long long)col * rows);
-            val = (uint32_t)x[row * stride_r + col * stride_c];
-          } else {
-            val = (uint32_t)x[i];
-          }
-        }
-        v[j][k] = val;
-      }
+      for (int k = 0; k < 4; ++k) v[j][k] = at + k < n ? (uint32_t)x[at + k] : 0u;
     }
-#pragma unroll
-    for (int k = 0; k < 4; ++k) x0[j][k] = v[j][k];
   }
 
   // running sums inside each group, a warp scan of the groups' sums, and the
@@ -182,26 +156,15 @@ scan_lookback(const int32_t* __restrict__ x, int32_t* __restrict__ out,
 #pragma unroll
   for (int j = 0; j < kVecs; ++j) {
     const long long at = first + j * 128;
-    if (!TABLE && full && vec_out) {
+    if (full && vec_out) {
       int4 q;
       q.x = v[j][0] + before; q.y = v[j][1] + before;
       q.z = v[j][2] + before; q.w = v[j][3] + before;
       *reinterpret_cast<int4*>(out + at) = q;
     } else {
 #pragma unroll
-      for (int k = 0; k < 4; ++k) {
-        const long long i = at + k;
-        if (i >= n) continue;
-        const uint32_t incl = v[j][k] + before;
-        if (TABLE) {
-          const int col = (int)(i / rows);
-          const int row = (int)(i - (long long)col * rows);
-          out[(long long)row * cols + col] = (int32_t)(incl - x0[j][k]);
-          if (row == rows - 1) out[(long long)rows * cols + col] = (int32_t)incl;
-        } else {
-          out[i] = (int32_t)incl;
-        }
-      }
+      for (int k = 0; k < 4; ++k)
+        if (at + k < n) out[at + k] = (int32_t)(v[j][k] + before);
     }
   }
 }
@@ -229,29 +192,7 @@ extern "C" int gs_cumsum_i32(const int32_t* x, int32_t* out, void* scratch, int 
   const int nt = tiles_of(n);
   const cudaError_t e = clear_scratch(scratch, nt, s);
   if (e != cudaSuccess) return static_cast<int>(e);
-  scan_lookback<false><<<nt, kThreads, 0, s>>>(
-      x, out, static_cast<u64*>(scratch), n, 0, 0, 0, 0, aligned16(x), aligned16(out));
-  return static_cast<int>(cudaGetLastError());
-}
-
-// counts: (rows, cols) int32 with element strides (stride_r, stride_c);
-// offs: (rows + 1, cols) int32, contiguous: offs[r, c] = the sum of every
-// count in a column before c plus column c's counts in rows before r; row
-// `rows` closes each column's range. rows * cols < 2^31. scratch: as for
-// gs_cumsum_i32 with n = rows * cols. One launch.
-extern "C" int gs_prefix_offsets_i32(const int32_t* counts, int32_t* offs,
-                                     void* scratch, int rows, int cols,
-                                     long long stride_r, long long stride_c,
-                                     void* stream) {
-  if (rows <= 0 || cols <= 0) return 0;
-  const long long n = (long long)rows * cols;
-  if (n >= (1ll << 31)) return static_cast<int>(cudaErrorInvalidValue);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int nt = tiles_of(n);
-  const cudaError_t e = clear_scratch(scratch, nt, s);
-  if (e != cudaSuccess) return static_cast<int>(e);
-  scan_lookback<true><<<nt, kThreads, 0, s>>>(
-      counts, offs, static_cast<u64*>(scratch), (int)n, rows, cols, stride_r,
-      stride_c, 0, 0);
+  scan_lookback<<<nt, kThreads, 0, s>>>(x, out, static_cast<u64*>(scratch), n,
+                                        aligned16(x), aligned16(out));
   return static_cast<int>(cudaGetLastError());
 }

@@ -21,8 +21,8 @@ one u32, tile * 2^22 + 22-bit depth (``"packed"``); overflow past
 come out depth-ordered, the record sort is a stable sort on the tile id
 alone, and overflow drops the farthest records. The single-key sorts
 (packed, hoisted) run on ``torch.sort`` (``record_sort="lax"``) or on the
-port's radix-sort kernels (``"radix"``: kernels radix_hist and
-radix_scatter, plus scan once a pass); the packed ``"lax"`` sort can carry
+port's onesweep radix sort (``"radix"``: kernel radix_counts once, then
+radix_scatter once a pass); the packed ``"lax"`` sort can carry
 the fields quantised to five u32 words (``sort_payload="q16"``, inference
 only). ``stats["overflow"]`` reports dropped records.
 

@@ -37,7 +37,6 @@ _P, _I, _F, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlon
 SIGNATURES = {
     "gs_cumsum_tile": [],
     "gs_cumsum_i32": [_P, _P, _P, _I, _P],
-    "gs_prefix_offsets_i32": [_P, _P, _P, _I, _I, _L, _L, _P],
     "gs_records_items": [],
     "gs_expand": [_P, _P, _P, _P, _P, _I, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P],
     "gs_composite_max_pixels": [],
@@ -46,8 +45,8 @@ SIGNATURES = {
                          _F, _F, _P],
     "gs_segsum": [_P, _I, _P, _I, _P, _P, _P],
     "gs_radix_chunk": [],
-    "gs_radix_hist": [_P, _I, _I, _I, _P, _P],
-    "gs_radix_scatter": [_P, _P, _I, _I, _I, _I, _P, _P, _P, _P],
+    "gs_radix_counts": [_P, _I, _I, _I, _P, _P, _L, _P],
+    "gs_radix_scatter": [_P, _P, _I, _I, _I, _I, _P, _P, _L, _P, _P, _P],
     "gs_bucketer_chunk": [],
     "gs_bucketer_level": [_P, _L, _I, _F, _P, _P],
     "gs_probe_affine": [_P, _P, _L, _P],

@@ -4,8 +4,6 @@ Counterpart of ``openglgaussiansplattingrenderer_tpu/ops/pallas/scan.py``;
 the kernel is ``csrc/scan.cu``, a single-pass scan: one launch behind one
 clear of its scratch, each value read once and written once. On the
 frame's path it turns the per-splat duplicate counts into record offsets.
-The same source's second entry point, ``table_offsets``, is phase 2 of a
-radix-sort pass.
 """
 
 from __future__ import annotations
@@ -44,7 +42,7 @@ def _scratch(n: int, tile: int, device, stream: int) -> torch.Tensor:
 
 
 def _check_words(name: str, t: torch.Tensor) -> None:
-    """What both entry points need of an int32 tensor beyond its shape."""
+    """What the entry point needs of an int32 tensor beyond its shape."""
     if t.numel() >= 2 ** 31:
         raise ValueError(f"{name}: {t.numel()} values exceed int32 indexing")
     if t.data_ptr() % 4:
@@ -79,44 +77,3 @@ def cumsum(x: torch.Tensor) -> torch.Tensor:
 
 
 cumsum.launches = 0
-
-
-def table_offsets_plain(counts: torch.Tensor) -> torch.Tensor:
-    """The plain PyTorch version of ``table_offsets``: a transpose, one
-    inclusive ``cumsum`` over the column-major table, and the rows put
-    back together."""
-    rows, cols = counts.shape
-    flat = counts.t().contiguous().view(-1)            # column-major
-    incl = cumsum_plain(flat)
-    body = (incl - flat).view(cols, rows).t()
-    last = incl.view(cols, rows)[:, -1:].t()           # column range ends
-    return torch.cat([body, last], dim=0).contiguous()
-
-
-def table_offsets(counts: torch.Tensor) -> torch.Tensor:
-    """Exclusive prefix sum of a (rows, cols) int32 table taken in
-    column-major order, as (rows + 1, cols): entry [r, c] is the sum of
-    every column before c plus column c's rows before r, and row ``rows``
-    closes each column's range. ``counts`` may have any strides. On CUDA
-    tensors one launch of the prefix-sum kernel (counted in
-    ``cumsum.launches``)."""
-    if counts.dtype != torch.int32:
-        raise TypeError(f"table_offsets: expected torch.int32, got {counts.dtype}")
-    if counts.dim() != 2 or counts.shape[1] == 0:
-        raise ValueError(f"table_offsets: expected a (rows, cols >= 1) table, "
-                         f"got {tuple(counts.shape)}")
-    _check_words("table_offsets", counts)
-    rows, cols = counts.shape
-    if rows == 0:
-        return counts.new_zeros((1, cols))
-    if not build.on_cuda("table_offsets", counts):
-        return table_offsets_plain(counts)
-    lib, tile = _library()
-    offs = torch.empty((rows + 1, cols), dtype=torch.int32, device=counts.device)
-    stream = build.stream_ptr()
-    scratch = _scratch(rows * cols, tile, counts.device, stream)
-    build.check("table_offsets", lib.gs_prefix_offsets_i32(
-        counts.data_ptr(), offs.data_ptr(), scratch.data_ptr(), rows, cols,
-        counts.stride(0), counts.stride(1), stream))
-    cumsum.launches += 1
-    return offs

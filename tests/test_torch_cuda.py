@@ -16,10 +16,11 @@ buffer that was not zero, a batch above the default 48 KB of shared memory,
 overflow in the
 segment sum, run-to-run equality, training on the card, the single-pass
 prefix sum at tile edges, on unaligned views, on wrapping sums and 200
-launches running, the radix sort's offset table, the radix-sort kernels at
-ragged sizes, on sorted, constant and one-key-a-digit inputs and both digit
-widths, the single-key sort paths of the frame, the two probe kernels, and
-the expansion and the segment sum on the partition cases of
+launches running, the onesweep radix sort's counts (views off the 16-byte
+grid too) and scatter at ragged sizes, on sorted, reversed, constant and
+one-key-a-digit inputs and both digit widths, whole sorts through an
+unaligned key view, 200 sorts running and on two streams, the single-key
+sort paths of the frame, the two probe kernels, and the expansion and the segment sum on the partition cases of
 ``test_torch_records_partition.py`` (runs of empty splats longer than
 several blocks' share, a splat over three blocks, ``total == capacity``,
 overflow, one splat, a capacity that is not a multiple of 4, inputs off the
@@ -441,45 +442,35 @@ def test_cumsum_kernel_200_launches_running(card):
     assert all(torch.equal(o, want) for o in outs)
 
 
-@pytest.mark.parametrize("k", [16, 256])
-@pytest.mark.parametrize("n_chunks", [1, 8, 37, 1536])
-def test_prefix_offsets_kernel_matches_plain(card, n_chunks, k):
-    counts = _counts(n_chunks * k, n_chunks + k, 0, 4097).view(n_chunks, k).to(card)
-    before = ks.cumsum.launches
-    got = rx._prefix_offsets(counts)
-    assert ks.cumsum.launches == before + 1                  # one launch, of kernel 1
-    assert got.is_contiguous() and got.shape == (n_chunks + 1, k)
-    assert torch.equal(got, rx._prefix_offsets_plain(counts))
-    # through other strides: a transposed table and every other column
-    wide = _counts(n_chunks * 2 * k, 5, 0, 99).view(2 * k, n_chunks).to(card)
-    view = wide.t()[:, ::2]
-    assert torch.equal(rx._prefix_offsets(view), rx._prefix_offsets_plain(view))
-
-
 def _u32_keys(n, seed, hi=2 ** 32):
     keys = np.random.default_rng(seed).integers(0, hi, n, dtype=np.uint32)
     return torch.from_numpy(keys.view(np.int32))
 
 
+def _plain_pass(k, v, counts, shift, bits):
+    """One pass through the plain versions, fed the counts the kernel got."""
+    return rx.radix_scatter_plain(k, v, rx.chunk_offsets_plain(k, counts, shift, bits),
+                                  shift, bits)
+
+
 @pytest.mark.parametrize("bits", [4, 8])
 @pytest.mark.parametrize("n,nv", [(1, 1), (4096, 0), (5000, 3), (300_001, 9)])
 def test_radix_kernels_match_plain(card, bits, n, nv):
-    # every pass of a 32-bit sort: counts and placement equal the plain
-    # versions exactly, ragged last chunk included
+    # the counts of every pass and the placement of each pass equal the
+    # plain versions exactly, ragged last chunk included
     k = _u32_keys(n, n + bits).to(card)
     v = torch.arange(nv * n, dtype=torch.int32, device=card).view(nv, n)
-    h0, s0 = rx.radix_hist.launches, rx.radix_scatter.launches
+    h0, s0 = rx.radix_counts.launches, rx.radix_scatter.launches
+    counts = rx.radix_counts(k, 32, bits)
+    assert torch.equal(counts, rx.radix_counts_plain(k, 32, bits))
     for p in range(32 // bits):
-        counts = rx.radix_hist(k, p * bits, bits)
-        assert torch.equal(counts, rx.radix_hist_plain(k, p * bits, bits))
-        offs = rx._prefix_offsets(counts)
-        got = rx.radix_scatter(k, v, offs, p * bits, bits)
-        ref = rx.radix_scatter_plain(k, v, offs, p * bits, bits)
+        got = rx.radix_scatter(k, v, counts[p], p * bits, bits)
+        ref = _plain_pass(k, v, counts[p], p * bits, bits)
         assert torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1])
         k, v = got
     torch.cuda.synchronize()
-    assert (rx.radix_hist.launches, rx.radix_scatter.launches) == (
-        h0 + 32 // bits, s0 + 32 // bits)
+    assert (rx.radix_counts.launches, rx.radix_scatter.launches) == (
+        h0 + 1, s0 + 32 // bits)
     assert bool((kr.u32_values(k).diff() >= 0).all())
 
 
@@ -497,20 +488,23 @@ def _scatter_keys(kind, n):
     return rnd
 
 
+KINDS = ["equal", "one_a_digit", "sorted", "reversed", "random"]
+
+
 @pytest.mark.parametrize("bits", [4, 8])
 @pytest.mark.parametrize("nv", [0, 1, 9])
 @pytest.mark.parametrize("n", [1, rx.CHUNK - 1, rx.CHUNK + 1, 1_234_567])
-@pytest.mark.parametrize("kind", ["equal", "one_a_digit", "sorted", "reversed",
-                                  "random"])
+@pytest.mark.parametrize("kind", KINDS)
 def test_radix_scatter_kernel_matches_plain(card, kind, n, nv, bits):
     k = torch.from_numpy(_scatter_keys(kind, n).view(np.int32)).to(card)
     v = torch.arange(nv * n, dtype=torch.int32, device=card).view(nv, n)
+    counts = rx.radix_counts(k, 32, bits)
+    assert torch.equal(counts, rx.radix_counts_plain(k, 32, bits))
     for shift in (0, 32 - bits):
-        offs = rx._prefix_offsets(rx.radix_hist(k, shift, bits))
-        got = rx.radix_scatter(k, v, offs, shift, bits)
-        ref = rx.radix_scatter_plain(k, v, offs, shift, bits)
+        got = rx.radix_scatter(k, v, counts[shift // bits], shift, bits)
+        ref = _plain_pass(k, v, counts[shift // bits], shift, bits)
         assert torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1])
-        again = rx.radix_scatter(k, v, offs, shift, bits)
+        again = rx.radix_scatter(k, v, counts[shift // bits], shift, bits)
         assert torch.equal(again[0], got[0]) and torch.equal(again[1], got[1])
 
 
@@ -519,9 +513,87 @@ def test_radix_scatter_kernel_on_an_unaligned_key_view(card):
     whole = torch.from_numpy(_scatter_keys("random", n + 1).view(np.int32)).to(card)
     k = whole[1:]
     v = torch.arange(n, dtype=torch.int32, device=card).view(1, n)
-    offs = rx._prefix_offsets(rx.radix_hist(k, 8))
-    got, ref = rx.radix_scatter(k, v, offs, 8), rx.radix_scatter_plain(k, v, offs, 8)
+    counts = rx.radix_counts(k)
+    assert torch.equal(counts, rx.radix_counts_plain(k))
+    got, ref = rx.radix_scatter(k, v, counts[1], 8), _plain_pass(k, v, counts[1], 8, 8)
     assert torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1])
+
+
+@pytest.mark.parametrize("offset", [1, 2, 3, 4])
+@pytest.mark.parametrize("n", [1, 2, 3, 5, 4099, 1_000_003])
+def test_radix_counts_kernel_on_views_off_the_16_byte_grid(card, offset, n):
+    # the scalars before the first 16-byte boundary and after the last whole
+    # vector, at every offset, and fewer keys than the head
+    whole = _u32_keys(n + offset, n + offset).to(card)
+    k = whole[offset:]
+    for key_bits, bits in ((32, 8), (32, 4), (10, 8), (9, 4)):
+        assert torch.equal(rx.radix_counts(k, key_bits, bits),
+                           rx.radix_counts_plain(k, key_bits, bits))
+
+
+ONESWEEP_N = [rx.CHUNK - 5, rx.CHUNK, 3 * rx.CHUNK + 1]
+
+
+@pytest.mark.parametrize("bits", [4, 8])
+@pytest.mark.parametrize("nv", [0, 1, 9])
+@pytest.mark.parametrize("n", ONESWEEP_N)
+@pytest.mark.parametrize("kind", KINDS)
+def test_onesweep_radix_sort_matches_torch_sort_and_the_plain_passes(card, kind, n, nv,
+                                                                    bits):
+    # through an unaligned view of the keys: the counts take their scalar
+    # head, the scatters their 4-byte loads
+    whole = torch.from_numpy(np.concatenate(
+        [np.zeros(1, np.uint32), _scatter_keys(kind, n)]).view(np.int32)).to(card)
+    keys = whole[1:]
+    rows = [torch.randn(n, generator=torch.Generator().manual_seed(r)).to(card)
+            for r in range(nv)]
+    h0, s0 = rx.radix_counts.launches, rx.radix_scatter.launches
+    sk, sv = rx.radix_sort(keys, rows, 32, bits)
+    assert (rx.radix_counts.launches, rx.radix_scatter.launches) == (
+        h0 + 1, s0 + 32 // bits)
+    rk, ri = torch.sort(kr.u32_values(keys), stable=True)
+    assert torch.equal(kr.u32_values(sk), rk)
+    for got, row in zip(sv, rows):
+        assert torch.equal(got, row[ri])
+    # and pass for pass against the plain versions on the CPU
+    k, v = keys.cpu(), (torch.stack(rows).view(torch.int32).cpu() if rows
+                        else torch.zeros((0, n), dtype=torch.int32))
+    counts = rx.radix_counts_plain(k, 32, bits)
+    for p in range(32 // bits):
+        k, v = _plain_pass(k, v, counts[p], p * bits, bits)
+    assert torch.equal(sk.cpu(), k)
+    assert all(torch.equal(a.cpu().view(torch.int32), b) for a, b in zip(sv, v))
+
+
+def test_onesweep_radix_sort_200_sorts_running(card):
+    # back to back on one stream, nothing synchronised in between: a
+    # descriptor seen torn or scratch seen stale shows as one sort that differs
+    n = 1_000_003
+    keys = _u32_keys(n, 17).to(card)
+    idx = torch.arange(n, dtype=torch.int32, device=card)
+    rk, ri = torch.sort(kr.u32_values(keys), stable=True)
+    outs = [rx.radix_sort(keys, (idx,), 32) for _ in range(200)]
+    torch.cuda.synchronize()
+    assert all(torch.equal(kr.u32_values(sk), rk) and torch.equal(si.to(torch.int64), ri)
+               for sk, (si,) in outs)
+
+
+def test_onesweep_radix_sort_on_two_streams(card):
+    # each stream has its own scratch: sorts of two streams may overlap
+    n = 2_000_001
+    keys = [_u32_keys(n, s).to(card) for s in (21, 22)]
+    idx = torch.arange(n, dtype=torch.int32, device=card)
+    want = [torch.sort(kr.u32_values(k), stable=True)[1] for k in keys]
+    streams = [torch.cuda.Stream(), torch.cuda.Stream()]
+    torch.cuda.synchronize()
+    outs = [[], []]
+    for _ in range(20):
+        for j, st in enumerate(streams):
+            with torch.cuda.stream(st):
+                outs[j].append(rx.radix_sort(keys[j], (idx,), 32)[1][0])
+    torch.cuda.synchronize()
+    for j in range(2):
+        assert all(torch.equal(si.to(torch.int64), want[j]) for si in outs[j])
 
 
 @pytest.mark.parametrize("bits", [4, 8])
@@ -563,13 +635,15 @@ def test_single_key_sort_frames_card_vs_cpu(card, name):
                                         if k != "record_sort"})
     _, on_card, args = _small(card)
     _, on_cpu, _ = _small("cpu")
-    h0 = rx.radix_hist.launches
+    h0, s0 = rx.radix_counts.launches, rx.radix_scatter.launches
     with torch.no_grad():
         img, stats = render_arrays(on_card, *args, cfg)
-        used = rx.radix_hist.launches - h0
+        used = (rx.radix_counts.launches - h0, rx.radix_scatter.launches - s0)
         img_like, _ = render_arrays(on_card, *args, like)
         img_cpu, stats_cpu = render_arrays(on_cpu, *args, cfg)
-    assert used == (0 if cfg.record_sort == "lax" else 4 if name.startswith("packed") else 2)
+    # one count and a scatter a pass: 4 passes of the packed key, 2 of the tile
+    assert used == ((0, 0) if cfg.record_sort == "lax" else
+                    (1, 4) if name.startswith("packed") else (1, 2))
     assert torch.equal(img, img_like)            # the engine does not show
     assert float((img.cpu() - img_cpu).abs().max()) <= 1e-4
     assert all(stats[k].item() == stats_cpu[k].item() for k in stats_cpu)
@@ -604,6 +678,23 @@ def test_bucketer_level_matches_plain(card, k):
     assert got.shape == (40, 16, k * 128)
     assert torch.equal(got, bucketer_probe.bucketer_level_plain(rec, k))
     assert torch.equal(got, bucketer_probe.bucketer_level(rec, k))
+
+
+@pytest.mark.parametrize("k", [1, 3, 32, 33, 64])
+def test_bucketer_level_on_an_unaligned_view(card, k):
+    # C not a multiple of 512 and rows that start 4 bytes off the 16-byte
+    # grid (the row stride, C floats, is odd too): the copies in take 4
+    # bytes where a row's address does not allow 16
+    c = 512 * 9 + 77
+    whole = bucketer_probe.make_records(16 * c + 1, card, seed=k).view(-1)
+    rec = whole[1:16 * c + 1].view(16, c)
+    assert rec.data_ptr() % 16 == 4 and rec.is_contiguous()
+    rec[bucketer_probe.TILE_ROW] = torch.randint(
+        -3, 516, (c,), generator=torch.Generator().manual_seed(k)).to(card).float()
+    rec[bucketer_probe.TILE_ROW, 2000:2300] = 511.0          # one deep bucket
+    got = bucketer_probe.bucketer_level(rec, k)
+    assert got.shape == (9, 16, k * 128)
+    assert torch.equal(got, bucketer_probe.bucketer_level_plain(rec, k))
 
 
 @pytest.mark.parametrize("shape", [(0,), (1,), (8, 128), (1_000_003,)])

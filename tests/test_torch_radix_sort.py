@@ -2,10 +2,11 @@
 against the JAX package's Pallas radix sort in interpret mode and against
 ``torch.sort(stable=True)``.
 
-Every comparison is exact, no tolerance: the count table at 4-bit digits
-against ``_histogram``, the offset table against the JAX ``_prefix_offsets``,
-and the five cases of ``tests/test_radix_sort.py`` at both digit widths and
-at two chunk lengths (one chunk, and several with a ragged last one).
+Every comparison is exact, no tolerance: the chunk count table at 4-bit
+digits against ``_histogram``, the chunk offsets that the scatter's
+look-back gives against the JAX ``_prefix_offsets``, and the five cases of
+``tests/test_radix_sort.py`` at both digit widths and at two chunk lengths
+(one chunk, and several with a ragged last one).
 """
 
 import functools
@@ -49,12 +50,19 @@ def test_hist_plain_matches_the_pallas_histogram():
 
 @pytest.mark.parametrize("n_chunks", [1, 8, 37])
 def test_prefix_offsets_match_jax(n_chunks):
-    counts = np.random.default_rng(n_chunks).integers(
-        0, 513, (n_chunks, 16)).astype(np.int32)
-    want = jax_rx._prefix_offsets(jnp.asarray(counts))
-    got = rx._prefix_offsets(torch.from_numpy(counts))
-    assert got.dtype == torch.int32 and got.is_contiguous()
-    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    # the offsets the scatter builds from the pass's counts (global digit
+    # bases) and the chunks before it, against the JAX table of the chunks'
+    # counts, at the JAX package's 512-key chunks and 4-bit digits
+    c = n_chunks * jax_rx.R - 3
+    keys = _bits_of(np.random.default_rng(n_chunks).integers(0, 2 ** 32, c,
+                                                             dtype=np.uint32))
+    counts = rx.radix_counts(keys, 32, 4)
+    for p in range(8):
+        hist = rx.radix_hist_plain(keys, 4 * p, 4, chunk=jax_rx.R)
+        want = jax_rx._prefix_offsets(jnp.asarray(hist.numpy()))
+        got = rx.chunk_offsets_plain(keys, counts[p], 4 * p, 4, chunk=jax_rx.R)
+        assert got.dtype == torch.int32 and got.shape == (n_chunks + 1, 16)
+        np.testing.assert_array_equal(got.numpy(), np.asarray(want))
 
 
 @pytest.mark.parametrize("k", [16, 256])
@@ -72,25 +80,29 @@ def test_prefix_offsets_plain_matches_jax_and_numpy(n_chunks, k):
     incl = np.cumsum(counts.T.reshape(-1), dtype=np.int64).reshape(k, n_chunks)
     np.testing.assert_array_equal(got.numpy()[:-1], (incl - counts.T).T)
     np.testing.assert_array_equal(got.numpy()[-1], incl[:, -1])
-    # the dispatching wrapper takes this version on the CPU, whatever the strides
+    # whatever the strides of the table
     t = torch.from_numpy(np.ascontiguousarray(counts.T)).t()
     assert not t.is_contiguous() or 1 in t.shape
-    assert torch.equal(rx._prefix_offsets(t), got)
+    assert torch.equal(rx._prefix_offsets_plain(t), got)
 
 
 def test_prefix_offsets_checks_raise_what_they_say():
-    assert torch.equal(rx._prefix_offsets(torch.zeros((0, 16), dtype=torch.int32)),
+    # the offsets come from the pass's row of the counts, which the scatter
+    # checks; an empty table has its closing row alone
+    assert torch.equal(rx._prefix_offsets_plain(torch.zeros((0, 16), dtype=torch.int32)),
                        torch.zeros((1, 16), dtype=torch.int32))
+    keys = torch.zeros(64, dtype=torch.int32)
+    vals = torch.zeros((1, 64), dtype=torch.int32)
     with pytest.raises(TypeError, match="int32"):
-        rx._prefix_offsets(torch.zeros((4, 16), dtype=torch.int64))
-    with pytest.raises(ValueError, match="table"):
-        rx._prefix_offsets(torch.zeros(64, dtype=torch.int32))
-    with pytest.raises(ValueError, match="table"):
-        rx._prefix_offsets(torch.zeros((4, 0), dtype=torch.int32))
-    with pytest.raises(ValueError, match="exceed int32 indexing"):
-        rx._prefix_offsets(torch.empty((2 ** 23, 256), dtype=torch.int32, device="meta"))
+        rx.radix_scatter(keys, vals, torch.zeros(256, dtype=torch.int64), 0)
+    with pytest.raises(ValueError, match="counts"):
+        rx.radix_scatter(keys, vals, torch.zeros((1, 256), dtype=torch.int32), 0)
+    with pytest.raises(ValueError, match="counts"):
+        rx.radix_scatter(keys, vals, torch.zeros(16, dtype=torch.int32), 0, 8)
+    with pytest.raises(ValueError, match="exceed int32 offsets"):
+        rx.radix_sort(torch.empty(2 ** 31, dtype=torch.int32, device="meta"))
     with pytest.raises(ValueError, match="CPU or all on one CUDA device"):
-        rx._prefix_offsets(torch.empty((4, 16), dtype=torch.int32, device="meta"))
+        rx.radix_scatter(keys, vals, torch.empty(256, dtype=torch.int32, device="meta"), 0)
 
 
 def _case(name):
@@ -130,10 +142,10 @@ def _jax_sorted(name):
 def test_radix_sort_matches_jax_and_torch_sort(name, bits, chunk, monkeypatch):
     monkeypatch.setattr(rx, "CHUNK", chunk)
     keys, vals, key_bits = _case(name)
-    before = (rx.radix_hist.launches, rx.radix_scatter.launches)
+    before = (rx.radix_counts.launches, rx.radix_scatter.launches)
     sk, sv = rx.radix_sort(_bits_of(keys), [torch.from_numpy(v) for v in vals],
                            key_bits, bits)
-    assert (rx.radix_hist.launches, rx.radix_scatter.launches) == before
+    assert (rx.radix_counts.launches, rx.radix_scatter.launches) == before
     assert sk.dtype == torch.int32 and all(v.dtype == torch.float32 for v in sv)
     want_k, want_v = _jax_sorted(name)
     np.testing.assert_array_equal(_u32_of(sk), want_k)
@@ -225,16 +237,22 @@ def test_radix_sort_has_no_size_ceiling():
 def test_radix_wrappers_take_the_plain_version_only_on_cpu():
     keys = torch.zeros(10, dtype=torch.int32, device="meta")
     with pytest.raises(ValueError, match="CPU or all on one CUDA device"):
-        rx.radix_hist(keys, 0)
+        rx.radix_counts(keys)
     vals = torch.zeros((1, 10), dtype=torch.int32, device="meta")
-    offs = torch.zeros((2, 256), dtype=torch.int32, device="meta")
+    counts = torch.zeros(256, dtype=torch.int32, device="meta")
     with pytest.raises(ValueError, match="CPU or all on one CUDA device"):
-        rx.radix_scatter(keys, vals, offs, 0)
+        rx.radix_scatter(keys, vals, counts, 0)
+    with pytest.raises(ValueError, match="CPU or all on one CUDA device"):
+        rx.radix_sort(keys)
     with pytest.raises(TypeError):
-        rx.radix_hist(torch.zeros(10, dtype=torch.int64), 0)
+        rx.radix_counts(torch.zeros(10, dtype=torch.int64))
     with pytest.raises(ValueError, match="leaves the key"):
-        rx.radix_hist(torch.zeros(10, dtype=torch.int32), 28, 8)
-    with pytest.raises(ValueError):                         # offs of another chunking
+        rx.radix_scatter(torch.zeros(10, dtype=torch.int32),
+                         torch.zeros((1, 10), dtype=torch.int32),
+                         torch.zeros(256, dtype=torch.int32), 28, 8)
+    with pytest.raises(ValueError, match="key_bits"):
+        rx.radix_counts(torch.zeros(10, dtype=torch.int32), 33)
+    with pytest.raises(ValueError):                         # counts of another width
         rx.radix_scatter(torch.zeros(10, dtype=torch.int32),
                          torch.zeros((1, 10), dtype=torch.int32),
                          torch.zeros((3, 256), dtype=torch.int32), 0)
