@@ -51,8 +51,8 @@ csrc`` (nvcc, at first use), then:
 4. prints each flagship scene's per-stage device times of one forward +
    backward (CUDA events), and in phase 6 the 1080p scene's; then the
    uniform frame's record sort of the packed key stage by stage, on the
-   radix route and on the torch.sort route, between events and on the
-   device alone;
+   radix route and on the torch.sort route, and the whole record sort on
+   each, between events and on the device alone;
 5. drives the training path: five Adam steps of ``make_train_step`` (L1 +
    D-SSIM, per-splat densification statistic) on the uniform flagship scene
    with perturbed colours against its clean render, counters reset just
@@ -209,23 +209,50 @@ def cuda_ms_once(fn):
     return result, start.elapsed_time(end)
 
 
-def device_us(fn, calls: int = 50):
+def device_us(fn, calls: int = 50, tries: int = 3):
     """Mean time on the device of what one call of ``fn`` launches there, in
-    microseconds, from torch.profiler's kernel records: the host's dispatch
-    is not in it. None where the profiler records no device activity."""
+    microseconds, from torch.profiler's kernel and memset records: the
+    host's dispatch is not in it. The profiler at times loses records, and
+    a lost record would read as a faster call. So each profiled run starts
+    and ends with a spin kernel, whose records are dropped whether they
+    came or not, and counts only if it holds ``calls`` times the records of
+    one call, name for name; a run that does not is logged and run again,
+    up to ``tries`` runs. None where no run is whole or nothing runs on the
+    device."""
+    from collections import Counter
+
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    def records(n):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            torch.cuda._sleep(1000)
+            for _ in range(n):
+                fn()
+            torch.cuda._sleep(1000)
+            torch.cuda.synchronize()
+        return [e for e in prof.events()
+                if e.device_type == DeviceType.CUDA and "spin_kernel" not in e.name]
+
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-    total = sum(e.time_range.elapsed_us() for e in prof.events()
-                if e.device_type == DeviceType.CUDA)
-    return total / calls if total > 0 else None
+    one = Counter(e.name for e in records(1))
+    if not one:
+        return None
+    want = Counter({name: k * calls for name, k in one.items()})
+    def short(c):
+        return {name[:60]: k for name, k in c.items()}
+
+    for _ in range(tries):
+        got = records(calls)
+        held = Counter(e.name for e in got)
+        if held == want:
+            return sum(e.time_range.elapsed_us() for e in got) / calls
+        log(f"device_us: the profiler held {sum(held.values())} device records of "
+            f"{calls} calls, not {sum(want.values())} (lost: "
+            f"{short(want - held)}; more: {short(held - want)}); run again")
+    return None
 
 
 def image_diff(a, b):
@@ -554,7 +581,7 @@ def check_radix(frame, results):
     sort64 = cuda_ms(lambda: torch.sort(key64, stable=True))
     sort64_us = device_us(lambda: torch.sort(key64, stable=True))
     # the hoisted path's key: the tile id alone, which int32 holds
-    kb = max(1, int(frame.cfg.num_tiles).bit_length())
+    kb = kr.tile_key_bits(frame.cfg.num_tiles)
     tile_passes = -(-kb // bits)
     st, (sti,) = rx.radix_sort(rec_t, (idx,), kb)
     rt, rti = torch.sort(rec_t, stable=True)
@@ -614,41 +641,74 @@ def check_radix(frame, results):
 
 
 def sort_walk(frame):
-    """Phase [4]: ``fastpath.sort_records`` of the packed key, stage by
-    stage, on the radix route and on the torch.sort route
-    (``scripts/torch_sort_walk.py``), each stage between CUDA events and on
-    the device alone."""
-    import importlib.util
-    from pathlib import Path
+    """Phase [4]: ``fastpath.sort_records`` of the packed key on the frame's
+    records, stage by stage, on the radix route and on the torch.sort
+    route, each stage fed the outputs of the one before it; every stage and
+    then the whole call timed between CUDA events (median of 9) and on the
+    device alone."""
+    import dataclasses
 
     import torch
 
+    from openglgaussiansplattingrenderer_tpu_torch.ops import fastpath
     from openglgaussiansplattingrenderer_tpu_torch.ops.kernels import radix_sort as rx
     from openglgaussiansplattingrenderer_tpu_torch.ops.kernels import records as kr
     from openglgaussiansplattingrenderer_tpu_torch.ops.kernels import scan as ks
 
-    path = Path(__file__).resolve().parent / "scripts" / "torch_sort_walk.py"
-    spec = importlib.util.spec_from_file_location("torch_sort_walk", path)
-    walk = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(walk)
-    t = frame.cfg.num_tiles
+    def us(v):
+        return "not measured" if v is None else f"{v:.1f}"
+
+    t, bits = frame.cfg.num_tiles, rx.BITS
+    key_bits = kr.packed_key_bits(t)
     with torch.no_grad():
         table, counts, ekw = frame.table()
         rec_f, rec_t, rec_d = kr.expand(*table, ks.cumsum(counts), **ekw)
         del table
-        radix, sk, si = walk.walk_stages(rx, kr, rec_t, rec_d, rec_f, t)
-        lax, lk, li = walk.lax_stages(kr, rec_t, rec_d, rec_f, t)
+        bnd = (torch.arange(t + 1, dtype=torch.int64, device=rec_t.device)
+               << kr.PACKED_DEPTH_BITS)
+        # the radix route: the u32 key and the index payload, one count of
+        # every pass's digits, then a scatter a pass
+        key = kr.packed_key_u32(rec_t, rec_d)
+        c = key.shape[0]
+        idx = torch.arange(c, dtype=torch.int32, device=key.device)
+        cnt = rx.radix_counts(key, key_bits, bits)
+        radix = [("packed_key_u32", lambda: kr.packed_key_u32(rec_t, rec_d)),
+                 ("index arange", lambda: torch.arange(c, dtype=torch.int32,
+                                                       device=key.device)),
+                 ("payload stack", lambda: torch.stack([idx])),
+                 ("radix_counts", lambda: rx.radix_counts(key, key_bits, bits))]
+        k, v = key, torch.stack([idx])
+        for p in range(-(-key_bits // bits)):
+            radix.append((f"scatter {p}", lambda k=k, v=v, p=p: rx.radix_scatter(
+                k, v, cnt[p], p * bits, bits)))
+            k, v = rx.radix_scatter(k, v, cnt[p], p * bits, bits)
+        sk, si = kr.u32_values(k), v[0]
+        radix += [("fields index_select", lambda: rec_f.index_select(1, si)),
+                  ("u32_values", lambda: kr.u32_values(k)),
+                  ("searchsorted", lambda: torch.searchsorted(sk, bnd).to(torch.int32))]
+        key64 = kr.packed_key(rec_t, rec_d)
+        lk, li = torch.sort(key64, stable=True)
         assert torch.equal(sk, lk) and torch.equal(si.to(torch.int64), li), (
             "sort walk: the radix route differs from torch.sort(stable=True)")
-        for route, stages in (("packed + radix", radix), ("packed torch.sort", lax)):
-            rows = walk.timed(stages, sys.modules[__name__])
+        lax = [("packed_key", lambda: kr.packed_key(rec_t, rec_d)),
+               ("torch.sort", lambda: torch.sort(key64, stable=True)),
+               ("fields index_select", lambda: rec_f.index_select(1, li)),
+               ("searchsorted", lambda: torch.searchsorted(lk, bnd).to(torch.int32))]
+        for route, stages, sort in (("packed + radix", radix, "radix"),
+                                    ("packed torch.sort", lax, "lax")):
+            cfg = dataclasses.replace(frame.cfg, depth_key="packed", record_sort=sort)
+            whole = (lambda cfg=cfg: fastpath.sort_records(rec_f, rec_t, rec_d,
+                                                           *frame.size, cfg))
+            rows = {name: (cuda_ms(fn, reps=9), device_us(fn, calls=20))
+                    for name, fn in stages + [("sort_records", whole)]}
+            ms, dev = rows.pop("sort_records")
             log(f"[4] uniform {route} sort_records stages (ms between events / us "
-                f"on the device alone): " + ", ".join(
-                    f"{k} {v['ms']:.4f} / "
-                    + ("not measured" if v["device_us"] is None else
-                       f"{v['device_us']:.1f}") for k, v in rows.items())
-                + f"; sums {sum(v['ms'] for v in rows.values()):.4f} ms / "
-                f"{sum(v['device_us'] or 0.0 for v in rows.values()):.1f} us")
+                f"on the device alone): "
+                + ", ".join(f"{k} {a:.4f} / {us(b)}" for k, (a, b) in rows.items())
+                + f"; sums {sum(a for a, _ in rows.values()):.4f} ms / "
+                + (us(sum(b for _, b in rows.values()))
+                   if all(b is not None for _, b in rows.values()) else "not measured")
+                + f" us; the whole sort_records {ms:.4f} ms / {us(dev)} us")
 
 
 def check_probes(results):
@@ -739,6 +799,7 @@ def check_single_key_frames(frame, img_pair, img_packed):
     import torch
 
     from openglgaussiansplattingrenderer_tpu_torch.ops.kernels import radix_sort as rx
+    from openglgaussiansplattingrenderer_tpu_torch.ops.kernels import records as kr
     from openglgaussiansplattingrenderer_tpu_torch.splats import inference_config
 
     packed = dataclasses.replace(frame.cfg, depth_key="packed")
@@ -756,8 +817,8 @@ def check_single_key_frames(frame, img_pair, img_packed):
         counts[name] = read_launches()
         # one count of every pass's digits, then a scatter a pass: at the
         # flagship's 512 tiles four passes of the packed key, two of the tile id
-        tile_kb = max(1, int(cfg.num_tiles).bit_length())
-        key_bits = 22 + tile_kb if name.startswith("packed") else tile_kb
+        key_bits = (kr.packed_key_bits(cfg.num_tiles) if name.startswith("packed")
+                    else kr.tile_key_bits(cfg.num_tiles))
         want = (1, -(-key_bits // rx.BITS)) if cfg.record_sort == "radix" else (0, 0)
         got = (counts[name]["radix_counts"], counts[name]["radix_scatter"])
         assert got == want, f"uniform {name}: radix launches {got}, not {want}"

@@ -185,21 +185,21 @@ def sort_records(rec_f, rec_t, rec_d, width: int, height: int,
     t = cfg.num_tiles
     dev = rec_f.device
     radix = cfg.record_sort == "radix"
-    tile_kb = max(1, int(t).bit_length())            # tile ids 0..t (t = invalid)
     if cfg.hoist_depth_sort:
         # records arrive depth-ordered, so a stable sort on the tile id alone
         # suffices
         if radix:
-            sk, _, sf = rx.radix_sort_with_payload(rec_t, rec_f, tile_kb)
+            sk, _, sf = rx.radix_sort_with_payload(rec_t, rec_f, kr.tile_key_bits(t))
         else:
             sk, _, sf = kr.sort_with_payload(rec_t, rec_f)
         tile_bnd = torch.arange(t + 1, dtype=torch.int32, device=dev)
     elif cfg.depth_key == "packed":
         # u32 key tile * 2^22 + 22-bit depth (fastpath.py "packed")
-        tile_bnd = torch.arange(t + 1, dtype=torch.int64, device=dev) << 22
+        tile_bnd = (torch.arange(t + 1, dtype=torch.int64, device=dev)
+                    << kr.PACKED_DEPTH_BITS)
         if radix:
             sk, _, sf = rx.radix_sort_with_payload(
-                kr.packed_key_u32(rec_t, rec_d), rec_f, 22 + tile_kb)
+                kr.packed_key_u32(rec_t, rec_d), rec_f, kr.packed_key_bits(t))
             # the invalid tile's keys have the top bit set: compare unsigned
             sk = kr.u32_values(sk)
         elif cfg.sort_payload == "q16":

@@ -255,12 +255,26 @@ def pair_key(tile: torch.Tensor, depth: torch.Tensor) -> torch.Tensor:
     return (tile.to(torch.int64) << 32) + ordered
 
 
+PACKED_DEPTH_BITS = 22              # the packed key's quantised depth
+
+
+def tile_key_bits(num_tiles: int) -> int:
+    """Bits of a tile id in 0..num_tiles (num_tiles is the invalid tile)."""
+    return max(1, int(num_tiles).bit_length())
+
+
+def packed_key_bits(num_tiles: int) -> int:
+    """Bits of ``packed_key`` over ``num_tiles`` tiles: the tile id above
+    the quantised depth."""
+    return PACKED_DEPTH_BITS + tile_key_bits(num_tiles)
+
+
 def packed_key(tile: torch.Tensor, depth: torch.Tensor) -> torch.Tensor:
     """tile * 2^22 + 22-bit quantised depth, the ``depth_key="packed"``
     key (held in int64; at most 512 tiles keep it below 2^32)."""
-    qd = torch.clamp_max((depth.clamp(0.0, 1.0) * float(1 << 22)).to(torch.int64),
-                         (1 << 22) - 1)
-    return tile.to(torch.int64) * (1 << 22) + qd
+    q = 1 << PACKED_DEPTH_BITS
+    qd = torch.clamp_max((depth.clamp(0.0, 1.0) * float(q)).to(torch.int64), q - 1)
+    return tile.to(torch.int64) * q + qd
 
 
 def u32_bits(x: torch.Tensor) -> torch.Tensor:

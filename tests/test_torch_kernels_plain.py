@@ -183,3 +183,15 @@ def test_packed_key_matches_fastpath_formula():
     want = tile.astype(np.uint32) * q + qd
     got = kr.packed_key(torch.from_numpy(tile), torch.from_numpy(depth))
     np.testing.assert_array_equal(got.numpy(), want.astype(np.int64))
+
+
+@pytest.mark.parametrize("num_tiles", [1, 2, 511, 512, 2040])
+def test_packed_key_bits_hold_every_key(num_tiles):
+    # the radix sort's key widths, as the JAX fast path takes them: the
+    # invalid tile's largest key fills exactly packed_key_bits
+    tile = torch.tensor([0, num_tiles], dtype=torch.int32)
+    key = kr.packed_key(tile, torch.tensor([0.0, 1.0]))
+    bits = kr.packed_key_bits(num_tiles)
+    assert bits == 22 + max(1, num_tiles.bit_length())
+    assert int(key.max()).bit_length() == bits
+    assert kr.tile_key_bits(num_tiles) == bits - kr.PACKED_DEPTH_BITS
