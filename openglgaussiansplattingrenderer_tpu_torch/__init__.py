@@ -1,7 +1,10 @@
 """Differentiable 3D Gaussian Splatting renderer: the PyTorch/CUDA port.
 
 The counterpart of ``openglgaussiansplattingrenderer_tpu`` (JAX/Pallas),
-which stays the reference. Plain tensor code is PyTorch; the kernels of
+which stays the reference. ``render_arrays`` runs the fast path with the
+kernels (``use_pallas=True``) or the oracle pipeline, plain PyTorch that
+shares no kernel with it (``use_pallas=False``); ``golden.py`` is the numpy
+golden of both. Plain tensor code is PyTorch; the kernels of
 the frame and of its gradient (prefix sum, record expansion and its
 segment-sum transpose, tile compositor forward and backward), of the radix
 record sort (digit histogram, stable scatter) and of the two probes in
@@ -18,6 +21,7 @@ from openglgaussiansplattingrenderer_tpu_torch.render import (
     camera_args,
     render,
     render_arrays,
+    render_depth,
     render_stats,
 )
 from openglgaussiansplattingrenderer_tpu_torch.train import (
@@ -37,6 +41,7 @@ __all__ = [
     "camera_args",
     "render",
     "render_arrays",
+    "render_depth",
     "render_stats",
     "TrainConfig",
     "TrainState",

@@ -12,8 +12,10 @@ Activation transforms at load (ref ``src/Splats.cpp:275-331``):
 colour = (0.5 + SH_C0 * f_dc) * 255, opacity = sigmoid(opacity),
 scale = exp(scale), quaternion normalised (stored w, x, y, z).
 
-This numpy parser is the port's only loader; the native C++ loader
-(``csrc/ply_loader.cpp``) is not bound by the port yet.
+``load_splats`` reads through the native C++ loader (``io/native.py``,
+binding the repository's ``csrc/ply_loader.cpp``) where it builds and the
+file has the standard layout; this numpy parser reads every other layout
+and is the fixture oracle the native loader is tested against.
 """
 
 from __future__ import annotations
@@ -153,7 +155,12 @@ def activate(ply: PlyData, color_scale: float = 255.0) -> Dict[str, np.ndarray]:
 
 
 def load_splats(path: str, color_scale: float = 255.0) -> Dict[str, np.ndarray]:
-    """Load + activate in one step."""
+    """Load + activate in one step. Tries the native C++ loader first."""
+    from openglgaussiansplattingrenderer_tpu_torch.io import native
+
+    out = native.load_splats(path, color_scale)
+    if out is not None:
+        return out
     return activate(load_ply(path), color_scale)
 
 

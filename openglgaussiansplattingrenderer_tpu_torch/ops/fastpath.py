@@ -121,9 +121,9 @@ def depth_sort_table(table, prep):
     fields' cotangents go back through the sort's single scatter. Returns
     (table, counts).
 
-    ``torch.sort`` takes -0.0 and +0.0 as equal where ``lax.sort`` puts
-    -0.0 first; a valid splat lies in front of the camera, its depth is
-    positive, and the two orders are the same.
+    ``torch.sort(stable=True)`` orders floats as ``lax.sort`` does (-0.0
+    equal to +0.0, +inf after every finite value, NaN last:
+    ``tests/test_torch_binning.py``).
     """
     fields, tile_min, tile_ext, _ = table
     inf = torch.full((), float("inf"), device=fields.device)

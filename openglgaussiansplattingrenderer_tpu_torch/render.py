@@ -1,8 +1,12 @@
 """Render entry points: parameter dict or scene + camera -> image and stats.
 
-Counterpart of ``openglgaussiansplattingrenderer_tpu/render.py`` for the
-forward frame. ``render_arrays`` keeps the JAX package's signature and
-stats keys; the frame runs on the device its parameter tensors lie on.
+Counterpart of ``openglgaussiansplattingrenderer_tpu/render.py``.
+``render_arrays`` keeps the JAX package's signature and stats keys and runs
+on the device its parameter tensors lie on: the fast path with the CUDA
+kernels (``use_pallas=True``, ``ops/fastpath.py``) or the oracle pipeline
+in plain PyTorch (``use_pallas=False``: ``ops/binning.py``,
+``ops/sorting.py``, ``ops/compositing.composite``), which shares no kernel
+with the fast path and is what the kernels are held against.
 """
 
 from __future__ import annotations
@@ -14,7 +18,7 @@ import numpy as np
 import torch
 
 from openglgaussiansplattingrenderer_tpu_torch.config import RenderConfig
-from openglgaussiansplattingrenderer_tpu_torch.ops import projection
+from openglgaussiansplattingrenderer_tpu_torch.ops import binning, compositing, projection
 from openglgaussiansplattingrenderer_tpu_torch.ops.transforms import (
     build_covariance,
     camera_center_from_view,
@@ -58,16 +62,92 @@ def render_arrays(
     (N,), colors (N,3) (or a packed ``cov6`` (N,6) instead of
     scales/quats), all float32 on one device; ``view``/``vp`` are 4x4.
     """
-    if not cfg.use_pallas:
-        raise NotImplementedError(
-            "use_pallas=False (the oracle pipeline) is not ported yet "
-            "(ROADMAP.md, modules to port: oracle render)")
-    from openglgaussiansplattingrenderer_tpu_torch.ops import fastpath
-
     dev = params["means"].device
-    return fastpath.render_fast(params, _matrix(view, dev), _matrix(vp, dev),
-                                focal_x, focal_y, tan_fovx, tan_fovy, width,
-                                height, cfg)
+    view, vp = _matrix(view, dev), _matrix(vp, dev)
+    if cfg.use_pallas:
+        from openglgaussiansplattingrenderer_tpu_torch.ops import fastpath
+
+        return fastpath.render_fast(params, view, vp, focal_x, focal_y,
+                                    tan_fovx, tan_fovy, width, height, cfg)
+
+    n = params["means"].shape[0]
+    cov6 = params.get("cov6")
+    if cov6 is None:
+        cov6 = build_covariance(params["scales"], params["quats"])
+    prep = projection.preprocess(
+        params["means"], cov6, params["opacities"], view, vp, width, height,
+        focal_x, focal_y, tan_fovx, tan_fovy, cfg)
+    recs = binning.expand_records(
+        prep["counts"], prep["tile_min"], prep["tile_ext"],
+        prep["depth"].detach(), cfg, cfg.capacity(n))
+    sorted_sid, bounds = binning.sort_and_bin(recs, cfg)
+    if "shift2d" in params:
+        # a zero shift whose gradient is the screen-space positional
+        # gradient (the densification statistic), as in the fast path
+        prep = dict(prep, mean2d=prep["mean2d"] + params["shift2d"])
+    gathered = compositing.gather_records(
+        prep, effective_colors(params, view, cfg), sorted_sid)
+    image, aux = compositing.composite(gathered, bounds, width, height, cfg)
+
+    i32 = torch.int32
+    num_visible = prep["valid"].sum(dtype=i32)
+    stats = {
+        "num_splats": torch.tensor(n, dtype=i32, device=dev),
+        "num_visible": num_visible,
+        "num_culled": prep["culled"].sum(dtype=i32),
+        "num_records": recs["total"],
+        "num_duplicates": recs["total"] - num_visible,
+        "overflow": recs["overflow"],
+        **binning.bin_stats(bounds),
+        "dropped_by_cap": aux["dropped_by_cap"],
+    }
+    return image, stats
+
+
+def render_depth(params: Dict[str, torch.Tensor], view, vp, focal_x, focal_y,
+                 tan_fovx, tan_fovy, width: int, height: int,
+                 cfg: RenderConfig, mode: str = "ndc", normalize: bool = True
+                 ) -> Tuple[torch.Tensor, torch.Tensor, Dict[str, torch.Tensor]]:
+    """Expected-depth map (H, W), coverage (alpha) map (H, W) and stats.
+
+    The blend weights are linear in colour, so rendering each splat with
+    its depth as colour gives E[d] = sum_k w_k d_k through ``render_arrays``
+    (the kernels where ``cfg.use_pallas``), with the same weights as the
+    colour frame. ``mode="ndc"``: the [0, 1] NDC z the sort orders by
+    (preprocess.glsl:91-94); ``"view"``: view-space z (Camera.cpp:57-65).
+    ``normalize`` divides by the accumulated alpha (0 where nothing
+    covers). Differentiable like the colour frame."""
+    dev = params["means"].device
+    means = params["means"].to(torch.float32)
+    mat = _matrix(vp if mode == "ndc" else view, dev)
+    mx, my, mz = means[:, 0], means[:, 1], means[:, 2]
+    p2 = mx * mat[2, 0] + my * mat[2, 1] + mz * mat[2, 2] + mat[2, 3]
+    if mode == "ndc":
+        p3 = mx * mat[3, 0] + my * mat[3, 1] + mz * mat[3, 2] + mat[3, 3]
+        d = (p2 / torch.clamp_min(p3, cfg.w_eps) + 1.0) * 0.5
+    elif mode == "view":
+        d = p2
+    else:
+        raise ValueError(f"unknown depth mode {mode!r}")
+
+    params_d = {k: v for k, v in params.items() if k != "sh_rest"}
+    params_d["colors"] = (d * cfg.color_scale)[:, None].expand(means.shape[0], 3)
+    cfg_d = dataclasses.replace(cfg, sh_degree=0, background=(0.0, 0.0, 0.0))
+    img, stats = render_arrays(params_d, view, vp, focal_x, focal_y, tan_fovx,
+                               tan_fovy, width, height, cfg_d)
+    depth, alpha = img[..., 0], img[..., 3]
+    if normalize:
+        depth = torch.where(alpha > 0.0, depth / torch.clamp_min(alpha, 1e-12),
+                            torch.zeros_like(depth))
+    return depth, alpha, stats
+
+
+def render_loss(params, target, view, vp, focal_x, focal_y, tan_fovx,
+                tan_fovy, width: int, height: int, cfg: RenderConfig):
+    """L2 image loss, for gradient tests and fitting."""
+    image, _ = render_arrays(params, view, vp, focal_x, focal_y, tan_fovx,
+                             tan_fovy, width, height, cfg)
+    return ((image[..., :3] - target) ** 2).mean()
 
 
 def camera_args(camera) -> Dict[str, np.ndarray]:

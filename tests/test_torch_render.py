@@ -149,7 +149,10 @@ def test_ply_helpers_match_jax_bit_for_bit(tmp_path):
     path = str(tmp_path / "s.ply")
     port_ply.save_ply(path, sc["means"], sc["quats"], sc["scales"],
                       sc["opacities"], sc["colors"], sc["sh_rest"])
-    got, want = port_ply.load_splats(path), jax_ply.activate(jax_ply.load_ply(path))
+    # the numpy parsers (load_splats reads through the native loader where
+    # it builds: tests/test_torch_native_loader.py)
+    got = port_ply.activate(port_ply.load_ply(path))
+    want = jax_ply.activate(jax_ply.load_ply(path))
     for k in want:
         np.testing.assert_array_equal(got[k], want[k])
 
@@ -186,9 +189,10 @@ def test_autotune_and_quantize_capacity_match_jax():
 
 
 @pytest.mark.parametrize("opts,error", [
-    # the oracle pipeline is not ported; the other three do not compose, and
-    # are refused with the JAX package's ValueErrors
-    pytest.param(dict(use_pallas=False), NotImplementedError, id="opts0"),
+    # the oracle pipeline renders as the JAX package's does (error None);
+    # the other three do not compose, and are refused with the JAX
+    # package's ValueErrors
+    pytest.param(dict(use_pallas=False), None, id="opts0"),
     pytest.param(dict(record_sort="radix"), ValueError, id="opts1"),
     pytest.param(dict(record_sort="radix", depth_key="reference"), ValueError,
                  id="opts2"),
@@ -200,6 +204,15 @@ def test_unported_modes_raise(opts, error):
     a = camera_args(port.Camera(0.0, 0.0, -3.0, width=64, height=64))
     args = (params_from_numpy(scene, "cpu"), a["view"], a["vp"], a["focal_x"],
             a["focal_y"], a["tan_fovx"], a["tan_fovy"], 64, 64)
+    if error is None:
+        img_t, st_t = render_arrays(*args, port.RenderConfig(**opts, **SINGLE))
+        img_j, st_j = jax_render({k: jnp.asarray(v) for k, v in scene.items()},
+                                 *args[1:], JaxConfig(**opts, **SINGLE))
+        assert np.asarray(img_j)[..., 3].max() > 0.5
+        np.testing.assert_allclose(img_t.numpy(), np.asarray(img_j), atol=1e-4)
+        assert {k: v.item() for k, v in st_t.items()} == {
+            k: np.asarray(v).item() for k, v in st_j.items()}
+        return
     with pytest.raises(error):
         render_arrays(*args, port.RenderConfig(**opts))
     if error is ValueError:
@@ -313,7 +326,11 @@ def test_port_never_imports_jax():
             "openglgaussiansplattingrenderer_tpu_torch.convert, "
             "openglgaussiansplattingrenderer_tpu_torch.ops.kernels.radix_sort, "
             "openglgaussiansplattingrenderer_tpu_torch.probes.bucketer_probe, "
-            "openglgaussiansplattingrenderer_tpu_torch.probes.cache_key_probe; "
+            "openglgaussiansplattingrenderer_tpu_torch.probes.cache_key_probe, "
+            "openglgaussiansplattingrenderer_tpu_torch.golden, "
+            "openglgaussiansplattingrenderer_tpu_torch.io.native, "
+            "openglgaussiansplattingrenderer_tpu_torch.ops.binning, "
+            "openglgaussiansplattingrenderer_tpu_torch.ops.sorting; "
             "assert 'jax' not in sys.modules, 'jax imported'")
     repo = str(PKG_DIR.parent)
     env = {**os.environ, "PYTHONPATH": repo}
@@ -324,6 +341,9 @@ def test_port_never_imports_jax():
                      r"(?!_torch)", re.M)
     files = sorted(PKG_DIR.rglob("*.py"))
     assert len(files) > 10
+    # and neither do the scripts of the port that run on the card
+    files += [PKG_DIR.parent / "chip_smoke.py",
+              PKG_DIR.parent / "scripts" / "torch_gate_divergence.py"]
     for f in files:
         assert not pat.search(f.read_text()), f
 
