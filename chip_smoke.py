@@ -70,6 +70,23 @@ csrc`` (nvcc, at first use), then:
    before and read just after; checks finite gradients, zero overflow, a
    falling loss and the training path's five kernels launched; times forward + backward
    and the whole step;
+5b. trains with adaptive density control: the same scene and target padded
+   to 4,194,304 rows (the padded start's frame bit-equal to the unpadded
+   one under ``tight_rect`` True and False, the live record count
+   unchanged, every dead row on screen culled by kernel 2 without the
+   tight rect: four records each at this camera), the train step timed
+   at that capacity and
+   ``densify_and_prune`` there (events and the device alone), then twelve
+   steps of ``fit_scene_adaptive`` (densify at steps 4 and 8 with a
+   threshold that picks 1% of the live splats, split threshold 0.005 x the
+   extent, opacity reset at step 10), counters reset just before and read
+   just after: clones and splits, every dead row parked, the alive count
+   balanced, zero overflow, a finite loss falling at every step no densify
+   precedes before the reset, kernels 1-5 launched; then the training CLI
+   (``scripts/torch_train_cli.py``) in-process on the card: the PLY route
+   on the uniform flagship (three 1024x512 orbit views, twenty steps,
+   ``--densify``) and the COLMAP route on a small workspace, each with its
+   own counts, exit 0, its three files and a finite PSNR;
 6. times one forward + backward of the clustered flagship and of the
    1,000,000-splat 1920x1080 scene, and holds a small frame's gradients
    on the card against the port's CPU path;
@@ -122,6 +139,15 @@ BUCKET_C, BUCKET_K = 6 * 1024 * 1024, 32   # the bucketing probe's own size
 # kernel's time: 256 MB in, 256 MB out for the prefix sum
 LARGE_SCAN = 64 * 1024 * 1024
 LARGE_AFFINE = 1_000_003
+# Phase [5b]: adaptive density control on the uniform flagship, padded to a
+# static capacity of 2^22 rows (578,201 free). percent_dense puts the split
+# threshold (percent_dense x extent ~ 0.015) inside the scene's scales
+# (0.003-0.027), so both the clone and the split branch run; the gradient
+# threshold is set to pick DENSIFY_SHARE of the live splats.
+DENSIFY_CAPACITY = 4_194_304
+DENSIFY_STEPS, DENSIFY_START, DENSIFY_INTERVAL, DENSIFY_RESET = 12, 4, 4, 10
+DENSIFY_PERCENT, DENSIFY_SHARE = 0.005, 0.01
+CLI_STEPS, CLI_VIEWS = 20, 3
 
 # The card's published peaks (NVIDIA H100 SXM data sheet): device memory
 # rate and float32 rate outside the tensor cores (a multiply-add counts 2).
@@ -880,16 +906,21 @@ def check_small_q16(device):
     assert 0.0 < err < Q16_SMALL_TOL, "small frame: q16 outside its budget"
 
 
-def gate_divergence():
-    """The float64 replay of ``scripts/torch_gate_divergence.py``."""
+def load_script(name):
+    """A script of ``scripts/`` loaded as a module, by path."""
     import importlib.util
     from pathlib import Path
 
-    path = Path(__file__).resolve().parent / "scripts" / "torch_gate_divergence.py"
-    spec = importlib.util.spec_from_file_location("torch_gate_divergence", path)
+    path = Path(__file__).resolve().parent / "scripts" / f"{name}.py"
+    spec = importlib.util.spec_from_file_location(name, path)
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
     return mod
+
+
+def gate_divergence():
+    """The float64 replay of ``scripts/torch_gate_divergence.py``."""
+    return load_script("torch_gate_divergence")
 
 
 def flips(findings):
@@ -1220,7 +1251,7 @@ def stage_times(name, frame, loss=mean_sq_loss):
 def check_training(frame):
     """Five Adam steps through make_train_step on the frame's scene with
     perturbed colours, against its clean render. Returns the launch counts
-    of the steps."""
+    of the steps and the median step wall time (ms)."""
     import numpy as np
     import torch
 
@@ -1287,7 +1318,296 @@ def check_training(frame):
         f"{statistics.median(wall):.3f}); forward + backward {fb_ms:.3f} ms; "
         f"largest colour move {moved:.4f}; overflow {overflow}")
     log(f"[5] kernel launches on the training path: {launches}")
+    return launches, statistics.median(wall)
+
+
+def check_densify(frame, cam, unpadded_step_ms):
+    """Phase [5b]: ``fit_scene_adaptive`` on the uniform flagship with
+    perturbed colours against its clean render, padded to
+    ``DENSIFY_CAPACITY`` rows. Checks the padded start's frame against the
+    unpadded one under both ``tight_rect`` settings, times the train step
+    at capacity and ``densify_and_prune`` there, then drives the fit with
+    the counters reset just before and read just after. Returns them."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from openglgaussiansplattingrenderer_tpu_torch.render import (
+        autotune_capacity,
+        render_arrays,
+    )
+    from openglgaussiansplattingrenderer_tpu_torch.train import densify as dn
+    from openglgaussiansplattingrenderer_tpu_torch.train.trainer import (
+        TrainConfig,
+        make_train_step,
+        params_from_raw,
+        raw_from_params,
+    )
+
+    w, h = frame.size
+    cap = DENSIFY_CAPACITY
+    with torch.no_grad():
+        target = frame.render()[0][..., :3].contiguous()
+    colors = frame.params["colors"].cpu().numpy()
+    noisy = np.clip(colors + np.random.default_rng(0).normal(0, 40, colors.shape),
+                    5, 250).astype(np.float32)
+    start = dict(frame.params, colors=torch.as_tensor(noisy).to(target.device))
+    means = start["means"].cpu().numpy()
+    extent = float(np.abs(means - means.mean(axis=0)).max())   # as train_cli.py
+
+    # the padded start renders the unpadded frame bit for bit; its dead rows
+    # get no record under tight_rect and a culled one without it
+    cfgs = {}
+    with torch.no_grad():
+        raw = raw_from_params(start)
+        padded, alive = dn.pad_to_capacity(raw, cap)
+        p_un, p_pad = params_from_raw(raw), params_from_raw(padded)
+        for tight in (True, False):
+            cfg = autotune_capacity(p_pad, *frame.args[:6], w, h,
+                                    dataclasses.replace(frame.cfg, tight_rect=tight))
+            cfgs[tight] = cfg
+            img_u, st_u = render_arrays(p_un, *frame.args, cfg)
+            img_p, st_p = render_arrays(p_pad, *frame.args, cfg)
+            st_u = {k: int(v) for k, v in st_u.items()}
+            st_p = {k: int(v) for k, v in st_p.items()}
+            live_u = st_u["num_records"] - st_u["culled_unreachable"]
+            live_p = st_p["num_records"] - st_p["culled_unreachable"]
+            dead_on_screen = st_p["num_visible"] - st_u["num_visible"]
+            extra_culled = st_p["culled_unreachable"] - st_u["culled_unreachable"]
+            log(f"[5b] padded start ({cap} rows, {cap - st_u['num_splats']} dead) vs "
+                f"unpadded, tight_rect={tight}: bit-equal {torch.equal(img_u, img_p)}; "
+                f"records {st_u['num_records']} -> {st_p['num_records']}, live "
+                f"{live_u} -> {live_p}, culled {st_u['culled_unreachable']} -> "
+                f"{st_p['culled_unreachable']}; dead rows on screen {dead_on_screen}; "
+                f"capacity {cfg.capacity_records}; overflow {st_p['overflow']}")
+            assert torch.equal(img_u, img_p), f"tight_rect={tight}: the padded frame differs"
+            assert live_u == live_p, f"tight_rect={tight}: live records {live_u} -> {live_p}"
+            assert st_p["overflow"] == 0 and st_u["overflow"] == 0
+            if tight:
+                assert st_p["num_records"] == st_u["num_records"], "dead rows allocated"
+            else:
+                assert dead_on_screen > 0 and extra_culled >= dead_on_screen, (
+                    f"the cull dropped {extra_culled} records of {dead_on_screen} "
+                    "dead rows on screen")
+        del p_un, p_pad, img_u, img_p
+    cfg = cfgs[True]
+
+    # steps 0-4 at capacity, as the fit takes them: their statistic sets the
+    # threshold (DENSIFY_SHARE of the live splats) the densify at step 4 reads
+    tc = TrainConfig(steps=DENSIFY_STEPS, lambda_dssim=0.2)
+    step = make_train_step(cfg, tc, w, h, with_grad_norms=True, grad_stat="screen",
+                           param_keys=tuple(sorted(padded)))
+    state = step.init(padded)
+    accum = torch.zeros(cap, device=target.device)
+    seen = torch.zeros(cap, device=target.device)
+    wall = []
+    for _ in range(DENSIFY_START + 1):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, metrics = step(state, target, *frame.args[:6])
+        torch.cuda.synchronize()
+        wall.append((time.perf_counter() - t0) * 1e3)
+        accum, seen = dn.accumulate_grad_stats(accum, seen, metrics["densify_grad_norm"],
+                                               alive)
+    live_avg = (accum / seen.clamp_min(1.0))[alive & (seen > 0)]
+    k = int(int(alive.sum()) * DENSIFY_SHARE)
+    thr = float(torch.topk(live_avg, k + 1).values[-1])
+    n_default = int((live_avg > 2e-4).sum())
+    log(f"[5b] train step at capacity ({cap} rows), wall ms "
+        f"{' '.join(f'{v:.1f}' for v in wall)} (median {statistics.median(wall):.3f}; "
+        f"phase [5]'s unpadded step {unpadded_step_ms:.3f}); grad_threshold "
+        f"{thr:.4e} picks {int((live_avg > thr).sum())} of {int(alive.sum())} live "
+        f"splats ({live_avg.numel()} seen); the default 2e-4 would pick {n_default}")
+
+    dc = dn.DensifyConfig(capacity=cap, grad_threshold=thr, percent_dense=DENSIFY_PERCENT,
+                          scene_extent=extent, start_step=DENSIFY_START,
+                          interval=DENSIFY_INTERVAL, stop_step=DENSIFY_STEPS,
+                          opacity_reset_interval=DENSIFY_RESET)
+    gen = torch.Generator(device=target.device).manual_seed(0)
+
+    def densify_once():
+        return dn.densify_and_prune(state.raw, alive, accum, seen, dc, generator=gen)
+
+    d_ms = cuda_ms(densify_once)
+    # one call a profiled run: a run of several holds a few more elementwise
+    # kernels than that many single calls, and device_us counts only a
+    # run that holds exactly its calls' records
+    d_us = device_us(densify_once, calls=1)
+    d_stats = {k: int(v) for k, v in densify_once()[3].items()}
+    log(f"[5b] densify_and_prune at {cap} rows: {d_ms:.3f} ms between events (median "
+        f"of {REPS}), on the device alone "
+        f"{'not measured' if d_us is None else f'{d_us:.1f} us'}; {d_stats}")
+    del state, metrics, accum, seen, padded, raw
+
+    events = []
+
+    def on_densify(i, before, after, stats):
+        saved = read_launches()        # the checks' frames are not the fit's
+        with torch.no_grad():
+            st = [{k: int(v) for k, v in render_arrays(params_from_raw(r), *frame.args,
+                                                        cfg)[1].items()}
+                  for r in (before[0], after[0])]
+        for k, fn in kernel_wrappers().items():
+            fn.launches = saved[k]
+        dead = ~after[1]
+        parked = (bool((after[0]["logit_opacities"][dead] == dn.DEAD_LOGIT).all())
+                  and bool((after[0]["log_scales"][dead] == dn.DEAD_LOG_SCALE).all()))
+        events.append({"step": i, **{k: int(v) for k, v in stats.items()},
+                       "alive_before": int(before[1].sum()),
+                       "alive_after": int(after[1].sum()), "parked": parked,
+                       "records_before": st[0]["num_records"],
+                       "records_after": st[1]["num_records"],
+                       "overflow_after": st[1]["overflow"]})
+
+    reset_launches()
+    t0 = time.perf_counter()
+    fitted, alive_end, hist = dn.fit_scene_adaptive(
+        start, [target], [cam], cfg, dc, tc=tc, log_every=1, verbose=False,
+        device=target.device, on_densify=on_densify)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    launches = read_launches()
+    with torch.no_grad():
+        end_overflow = int(render_arrays(fitted, *frame.args, cfg)[1]["overflow"])
+
+    losses = [e["loss"] for e in hist]
+    for e in events:
+        log(f"[5b] densify at step {e['step']}: {e}")
+    log(f"[5b] fit_scene_adaptive, {DENSIFY_STEPS} steps in {fit_s:.2f} s: loss "
+        + " ".join(f"{v:.6f}" for v in losses) + "; psnr "
+        + " ".join(f"{e['psnr']:.3f}" for e in hist) + "; alive "
+        + " ".join(str(e["alive"]) for e in hist)
+        + f"; overflow at the end {end_overflow}")
+    log(f"[5b] kernel launches on the densify path: {launches}")
+    assert [e["step"] for e in hist] == list(range(DENSIFY_STEPS)), hist
+    assert all(np.isfinite(losses)), losses
+    # Before the opacity reset the loss falls at every step that no densify
+    # precedes. A densify moves the image: the threshold picks 1% of the
+    # live splats, but only the few percent in front get a gradient at all,
+    # so the clones and splits rewrite a large share of the visible ones.
+    after_densify = {e["step"] + 1 for e in events}
+    for i in range(1, DENSIFY_RESET):
+        if i not in after_densify:
+            assert losses[i] < losses[i - 1], (
+                f"loss did not fall at step {i} before the opacity reset: {losses}")
+    log("[5b] loss change across each densify: " + ", ".join(
+        f"step {i - 1} -> {i}: {losses[i] - losses[i - 1]:+.6f}"
+        for i in sorted(after_densify)))
+    assert [e["step"] for e in events] == list(range(DENSIFY_START, DENSIFY_STEPS,
+                                                     DENSIFY_INTERVAL)), events
+    assert sum(e["cloned"] for e in events) > 0, "densify cloned nothing"
+    assert sum(e["split"] for e in events) > 0, "densify split nothing"
+    for e in events:
+        assert e["alive_after"] == e["alive"] == (
+            e["alive_before"] + e["cloned"] + e["split"] - e["pruned"]), e
+        assert e["parked"], f"step {e['step']}: a dead row is not parked at -20"
+        assert e["overflow_after"] == 0, e
+    assert end_overflow == 0, f"overflow {end_overflow} at the end"
+    assert int(alive_end.sum()) == hist[-1]["alive"]
+    for k in ("cumsum", "expand", "segsum", "composite", "composite_bwd"):
+        assert launches[k] > 0, f"{k} kernel never launched on the densify path"
     return launches
+
+
+def check_cli(scene, device):
+    """Phase [5b], continued: ``scripts/torch_train_cli.py`` in-process on
+    the card through two routes, counters reset just before each run and
+    read just after: the PLY route on the uniform flagship written to a PLY
+    (CLI_VIEWS orbit views at 1024x512, CLI_STEPS steps, --densify) and the
+    COLMAP route on a small workspace written here as
+    tests/test_colmap.py writes its fixture. Returns the counts of each."""
+    import json
+    import os
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from openglgaussiansplattingrenderer_tpu_torch import RenderConfig
+    from openglgaussiansplattingrenderer_tpu_torch.convert import params_from_numpy
+    from openglgaussiansplattingrenderer_tpu_torch.io import colmap as cm
+    from openglgaussiansplattingrenderer_tpu_torch.io import dataset as ds
+    from openglgaussiansplattingrenderer_tpu_torch.io import ply as ply_io
+    from openglgaussiansplattingrenderer_tpu_torch.io.png import save_png
+    from openglgaussiansplattingrenderer_tpu_torch.render import render_arrays
+
+    cli = load_script("torch_train_cli")
+    out = {}
+
+    def run(name, argv, d):
+        files = [os.path.join(d, f"{name}{ext}") for ext in (".ply", ".png", ".json")]
+        reset_launches()
+        t0 = time.perf_counter()
+        rc = cli.main(argv + ["-o", files[0], "--out-png", files[1],
+                              "--history", files[2]])
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        out[name] = read_launches()
+        assert rc == 0, f"the CLI's {name} route exited {rc}"
+        assert all(os.path.exists(f) for f in files), f"the {name} route's outputs"
+        hist = json.load(open(files[2]))
+        psnr = hist["final_psnr_view0"]
+        assert np.isfinite(psnr), f"{name} route: PSNR {psnr}"
+        steps = hist["history"]
+        log(f"[5b] CLI {name} route: exit {rc} in {seconds:.1f} s; losses "
+            + " ".join(f"{e['step']}:{e['loss']:.5f}" for e in steps)
+            + f"; {hist['splats']} splats written; view-0 PSNR {psnr:.3f} dB; "
+            f"launches {out[name]}")
+        for k in ("cumsum", "expand", "segsum", "composite", "composite_bwd"):
+            assert out[name][k] > 0, f"{k} kernel never launched by the {name} route"
+
+    with tempfile.TemporaryDirectory() as d:
+        ply = os.path.join(d, "flagship.ply")
+        t0 = time.perf_counter()
+        ply_io.save_ply(ply, scene["means"], scene["quats"], scene["scales"],
+                        scene["opacities"], scene["colors"])
+        log(f"[5b] flagship PLY written in {time.perf_counter() - t0:.1f} s "
+            f"({os.path.getsize(ply) / 2**20:.0f} MiB)")
+        run("ply", [ply, "--width", str(FLAG_W), "--height", str(FLAG_H),
+                    "--views", str(CLI_VIEWS), "--orbit-radius", "8", "--steps",
+                    str(CLI_STEPS), "--densify", "--densify-start", "5",
+                    "--densify-interval", "5", "--log-every", "5"], d)
+        os.remove(ply)
+
+        # a COLMAP workspace: two posed 64x64 views of a 40-splat scene
+        w = h = 64
+        small = ply_io.make_synthetic_scene(40, seed=6, extent=1.0)
+        sparse, images = os.path.join(d, "ws", "sparse", "0"), os.path.join(d, "ws", "images")
+        os.makedirs(sparse)
+        os.makedirs(images)
+        cm.write_cameras_bin(os.path.join(sparse, "cameras.bin"), {1: {
+            "model": "PINHOLE", "width": w, "height": h,
+            "params": np.array([70.0, 70.0, w / 2.0, h / 2.0])}})
+        poses, names = [], []
+        cfg = RenderConfig.for_resolution(w, h, tile_px=32, chunk=64,
+                                          dup_capacity_factor=32.0)
+        params = params_from_numpy({k: v for k, v in small.items() if k != "sh_rest"},
+                                   device)
+        for i, (pos, yaw) in enumerate((([0, 0, 4.0], 0.0), ([1.2, 0, 3.8], 17.0))):
+            a = np.deg2rad(yaw)
+            c2w = np.eye(4)
+            c2w[:3, :3] = [[np.cos(a), 0, np.sin(a)], [0, 1, 0], [-np.sin(a), 0, np.cos(a)]]
+            c2w[:3, 3] = pos
+            w2c = np.linalg.inv(c2w @ np.diag([1.0, -1.0, -1.0, 1.0]))
+            poses.append((cm.rotmat2qvec(w2c[:3, :3]), w2c[:3, 3]))
+            b = ds.bundle_from_c2w(c2w, w, h, fl_x=70.0, fl_y=70.0)
+            with torch.no_grad():
+                img, _ = render_arrays(params, b["view"], b["vp"], b["focal_x"],
+                                       b["focal_y"], b["tan_fovx"], b["tan_fovy"], w, h,
+                                       cfg)
+            arr = img[..., :3].cpu().numpy()
+            assert arr.max() > 0.02, "the COLMAP view does not see the scene"
+            names.append(f"v{i}.png")
+            save_png(os.path.join(images, names[-1]), arr)
+        cm.write_images_bin(os.path.join(sparse, "images.bin"), [
+            {"image_id": i + 1, "qvec": q, "tvec": t, "camera_id": 1, "name": names[i]}
+            for i, (q, t) in enumerate(poses)])
+        cm.write_points3d_bin(os.path.join(sparse, "points3D.bin"), small["means"],
+                              np.clip(small["colors"], 0, 255).astype(np.uint8))
+        run("colmap", [os.path.join(d, "ws"), "--width", str(w), "--height", str(h),
+                       "--steps", str(CLI_STEPS), "--log-every", "5"], d)
+    return out
 
 
 def check_small_gradients(device):
@@ -1446,7 +1766,13 @@ def main() -> int:
     sort_walk(frames["uniform"])
 
     # ---- 5. the training path -------------------------------------------
-    launches = check_training(frames["uniform"])
+    launches, train_ms = check_training(frames["uniform"])
+
+    # ---- 5b. adaptive density control at capacity, and the training CLI ---
+    t0 = time.perf_counter()
+    densify_launches = check_densify(frames["uniform"], fcam, train_ms)
+    cli_launches = check_cli(scenes["uniform"], dev)
+    log(f"[5b] the phase took {time.perf_counter() - t0:.1f} s")
 
     # ---- 6. forward + backward of the other scenes ------------------------
     check_fwdbwd("uniform pair", frames["uniform"])
@@ -1490,7 +1816,11 @@ def main() -> int:
                      "render_path_launches": render_launches[name],
                      "radix_frame_launches": sort_launches["packed+radix"][name],
                      "oracle_phase_launches": oracle_launches[name],
+                     "densify_phase_launches": densify_launches[name],
+                     "cli_ply_launches": cli_launches["ply"][name],
+                     "cli_colmap_launches": cli_launches["colmap"][name],
                      **results[name]})
+    log(f"[7] card and power limit, again beside the results: {card}")
     log(json.dumps({"oracle": oracle}))
     log(json.dumps({"kernels": rows}))
     log(json.dumps({"ok": True, "device": {

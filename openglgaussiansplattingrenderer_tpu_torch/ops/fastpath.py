@@ -128,7 +128,10 @@ def depth_sort_table(table, prep):
     fields, tile_min, tile_ext, _ = table
     inf = torch.full((), float("inf"), device=fields.device)
     key = torch.where(prep["valid"], prep["depth"], inf).detach()
-    sk, si, sf = kr.sort_with_payload(key, fields)
+    # the JAX package's hoisted sort carries 13 rows (these 9 and four
+    # integer rows), so under the bf16 cotangent mode all 9 float rows are
+    # paired there: round all 9 here too
+    sk, si, sf = kr.sort_with_payload(key, fields, paired_rows=fields.shape[0])
     zero = torch.zeros((), dtype=torch.float32, device=fields.device)
     depth = torch.where(torch.isfinite(sk), sk, zero)
     return (sf.contiguous(), tile_min[si].contiguous(), tile_ext[si].contiguous(),

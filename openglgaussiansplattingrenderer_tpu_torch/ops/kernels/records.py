@@ -22,7 +22,8 @@ and a float32 depth per record.
 from __future__ import annotations
 
 import functools
-from typing import Tuple
+import os
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -218,6 +219,30 @@ expand.launches = 0
 segsum.launches = 0
 
 
+# Backward cotangent precision through the un-sort (the JAX package's
+# ``BWD_COT_PACK``, ``records.py:159-204`` there): "bf16" rounds the field
+# cotangents in pairs, rows (0, 1), (2, 3), ... to bfloat16 (round to
+# nearest even, as ``astype(bfloat16)`` does) before they go back to source
+# order; an odd last row stays float32. The JAX package packs each pair into
+# one u32 operand of its sort, which is where its time went; here the
+# rounding alone is kept, so the gradients equal the JAX package's in that
+# mode. Opt-in (not bit-equal to f32): set GS_BWD_SORT=bf16 before import,
+# or set this flag, which ``SortWithPayload.backward`` reads at each call.
+# The radix sort's backward does not use it, as in the JAX package.
+BWD_COT_PACK = os.environ.get("GS_BWD_SORT", "f32")
+
+
+def round_cotangent_pairs(g: torch.Tensor, paired_rows: Optional[int] = None
+                          ) -> torch.Tensor:
+    """The bf16 mode's rounding of (F, C) cotangents: the first
+    ``paired_rows`` rows (default the even part of F) to bfloat16 and back,
+    the rest untouched."""
+    k = g.shape[0] // 2 * 2 if paired_rows is None else paired_rows
+    if k == 0:
+        return g
+    return torch.cat([g[:k].to(torch.bfloat16).to(g.dtype), g[k:]])
+
+
 class SortWithPayload(torch.autograd.Function):
     """Stable sort of the key with the fields gathered along; the backward
     puts the field cotangents back in source order. ``si`` is a full
@@ -225,23 +250,30 @@ class SortWithPayload(torch.autograd.Function):
     result from run to run); the key gets no gradient."""
 
     @staticmethod
-    def forward(ctx, key, fields):
+    def forward(ctx, key, fields, paired_rows):
         sk, si = torch.sort(key, stable=True)
         ctx.save_for_backward(si)
+        ctx.paired_rows = paired_rows
         ctx.mark_non_differentiable(sk, si)
         return sk, si, fields.index_select(1, si)
 
     @staticmethod
     def backward(ctx, _g_key, _g_idx, g_fields):
         (si,) = ctx.saved_tensors
-        return None, torch.empty_like(g_fields).index_copy_(1, si, g_fields)
+        if BWD_COT_PACK == "bf16":
+            g_fields = round_cotangent_pairs(g_fields, ctx.paired_rows)
+        return (None, torch.empty_like(g_fields).index_copy_(1, si, g_fields),
+                None)
 
 
-def sort_with_payload(key: torch.Tensor, fields: torch.Tensor):
+def sort_with_payload(key: torch.Tensor, fields: torch.Tensor,
+                      paired_rows: Optional[int] = None):
     """Stable sort by ``key``; returns (sorted_key, source_idx,
     sorted_fields) with ``fields`` (F, C) gathered along the record axis,
-    differentiable with respect to ``fields``."""
-    return SortWithPayload.apply(key, fields)
+    differentiable with respect to ``fields``. ``paired_rows`` is how many
+    leading rows the bf16 cotangent mode rounds (``round_cotangent_pairs``;
+    default the even part of F)."""
+    return SortWithPayload.apply(key, fields, paired_rows)
 
 
 def pair_key(tile: torch.Tensor, depth: torch.Tensor) -> torch.Tensor:

@@ -1,0 +1,87 @@
+"""Frame and stage timing.
+
+Counterpart of ``openglgaussiansplattingrenderer_tpu/utils/timing.py``,
+the replacement of the reference's GL timer queries: the per-frame
+``GL_TIMESTAMP`` pair printed each loop (``main.cpp:53-54,84-88``) and the
+stage wall clocks of cpuRender (``Splats.cpp:777-781,847,956,1135``).
+
+CUDA work is queued: a host clock read right after a call measures the
+launch, not the work. Every timer here fences first: ``fence`` waits for
+each CUDA device that a tensor of the result lies on; CPU tensors are
+already computed.
+"""
+
+from __future__ import annotations
+
+import time
+from typing import Callable, Dict, List, Tuple
+
+import numpy as np
+import torch
+
+
+def _tensors(x):
+    if torch.is_tensor(x):
+        yield x
+    elif isinstance(x, dict):
+        for v in x.values():
+            yield from _tensors(v)
+    elif isinstance(x, (list, tuple)):
+        for v in x:
+            yield from _tensors(v)
+
+
+def fence(x) -> None:
+    """Wait until the tensors in ``x`` (a tensor, or dicts, lists and
+    tuples of them) are computed: ``torch.cuda.synchronize`` once for each
+    CUDA device among them; nothing for CPU tensors."""
+    devices = {t.device for t in _tensors(x) if t.is_cuda}
+    for d in devices:
+        torch.cuda.synchronize(d)
+
+
+class FrameTimer:
+    """Per-frame ms timer, the analogue of the reference's
+    ``glQueryCounter(GL_TIMESTAMP)`` pair (``main.cpp:53-54,84-88``)."""
+
+    def __init__(self):
+        self.frames_ms: List[float] = []
+        self._t0 = None
+
+    def start(self) -> None:
+        self._t0 = time.perf_counter()
+
+    def stop(self, result=None) -> float:
+        if result is not None:
+            fence(result)
+        dt = (time.perf_counter() - self._t0) * 1000.0
+        self.frames_ms.append(dt)
+        return dt
+
+    def summary(self) -> Dict[str, float]:
+        if not self.frames_ms:
+            return {"frames": 0, "mean_ms": 0.0, "p50_ms": 0.0,
+                    "p95_ms": 0.0, "fps": 0.0}
+        a = np.asarray(self.frames_ms[1:] or self.frames_ms)  # drop warmup
+        return {
+            "frames": len(self.frames_ms),
+            "mean_ms": float(a.mean()),
+            "p50_ms": float(np.percentile(a, 50)),
+            "p95_ms": float(np.percentile(a, 95)),
+            "fps": float(1000.0 / max(a.mean(), 1e-9)),
+        }
+
+
+def time_stages(stages: List[Tuple[str, Callable]], iters: int = 5,
+                warmup: int = 1) -> Dict[str, float]:
+    """Time named thunks, fencing each result; returns name -> ms."""
+    out = {}
+    for name, fn in stages:
+        for _ in range(warmup):
+            fence(fn())
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            r = fn()
+        fence(r)
+        out[name] = (time.perf_counter() - t0) / iters * 1000.0
+    return out

@@ -1,0 +1,5 @@
+from openglgaussiansplattingrenderer_tpu_torch.viewer.offline import (  # noqa: F401
+    orbit_cameras,
+    render_orbit,
+    render_frame,
+)

@@ -21,6 +21,9 @@ from openglgaussiansplattingrenderer_tpu.ops.pallas import radix_sort as jax_rx
 
 from openglgaussiansplattingrenderer_tpu_torch.ops.kernels import radix_sort as rx
 from openglgaussiansplattingrenderer_tpu_torch.ops.kernels import records as kr
+from _torch_threads import one_torch_thread  # noqa: F401, E402
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 
 def _bits_of(u32: np.ndarray) -> torch.Tensor:

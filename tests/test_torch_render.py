@@ -40,6 +40,9 @@ from openglgaussiansplattingrenderer_tpu_torch.render import (
     quantize_capacity,
     render_arrays,
 )
+from _torch_threads import one_torch_thread  # noqa: F401, E402
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 PKG_DIR = Path(port.__file__).parent
 BASE = dict(max_per_tile=1024, chunk=64, dup_capacity_factor=24.0)
@@ -330,7 +333,15 @@ def test_port_never_imports_jax():
             "openglgaussiansplattingrenderer_tpu_torch.golden, "
             "openglgaussiansplattingrenderer_tpu_torch.io.native, "
             "openglgaussiansplattingrenderer_tpu_torch.ops.binning, "
-            "openglgaussiansplattingrenderer_tpu_torch.ops.sorting; "
+            "openglgaussiansplattingrenderer_tpu_torch.ops.sorting, "
+            "openglgaussiansplattingrenderer_tpu_torch.train.densify, "
+            "openglgaussiansplattingrenderer_tpu_torch.io.dataset, "
+            "openglgaussiansplattingrenderer_tpu_torch.io.colmap, "
+            "openglgaussiansplattingrenderer_tpu_torch.utils.timing, "
+            "openglgaussiansplattingrenderer_tpu_torch.viewer.offline, "
+            "importlib.util as u; "
+            "s = u.spec_from_file_location('cli', 'scripts/torch_train_cli.py'); "
+            "s.loader.exec_module(u.module_from_spec(s)); "
             "assert 'jax' not in sys.modules, 'jax imported'")
     repo = str(PKG_DIR.parent)
     env = {**os.environ, "PYTHONPATH": repo}
@@ -343,7 +354,8 @@ def test_port_never_imports_jax():
     assert len(files) > 10
     # and neither do the scripts of the port that run on the card
     files += [PKG_DIR.parent / "chip_smoke.py",
-              PKG_DIR.parent / "scripts" / "torch_gate_divergence.py"]
+              PKG_DIR.parent / "scripts" / "torch_gate_divergence.py",
+              PKG_DIR.parent / "scripts" / "torch_train_cli.py"]
     for f in files:
         assert not pat.search(f.read_text()), f
 

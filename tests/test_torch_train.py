@@ -31,6 +31,9 @@ import openglgaussiansplattingrenderer_tpu_torch as port
 from openglgaussiansplattingrenderer_tpu_torch import convert
 from openglgaussiansplattingrenderer_tpu_torch.render import render_stats
 from openglgaussiansplattingrenderer_tpu_torch.train import losses, trainer
+from _torch_threads import one_torch_thread  # noqa: F401, E402
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 CFG = dict(chunk=32, max_per_tile=256, dup_capacity_factor=32.0)
 W = H = 64
