@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py              # every phase, on one card
+    python3 chip_smoke.py --cards 4    # phase [9] only, over four cards
 
 Builds the port's CUDA kernels from ``openglgaussiansplattingrenderer_tpu_torch/
 csrc`` (nvcc, at first use), then:
@@ -90,8 +91,27 @@ csrc`` (nvcc, at first use), then:
 6. times one forward + backward of the clustered flagship and of the
    1,000,000-splat 1920x1080 scene, and holds a small frame's gradients
    on the card against the port's CPU path;
-7. prints a JSON line of phase [3a]'s numbers, a JSON line of per-kernel
-   results and, last, the device line.
+8. drives the render CLI (``scripts/torch_render_cli.py``) in-process on
+   the uniform flagship's PLY at the reference pose, route by route
+   (default, q16, depth, a 4-frame orbit; golden on the gate scene), each
+   PNG byte-equal to the frame rendered here and written by the same
+   encoder, q16 within ``Q16_FLAG_TOL`` of the packed f32 frame; then the
+   interactive viewer's server on port 0: ``/frame``, ten keys through
+   ``/key`` (the served camera equal to ``apply_key`` on the host), 30
+   ``/stream`` frames, ``/frame`` at the moved pose equal to
+   ``render_camera_u8``, ``/stats``; then ``scripts/
+   torch_viewer_fps_bench.py`` at its default and at the flagship;
+9. the multi-device layer on four logical shards of the one card: the
+   fast sharded frame (both flagships padded to 3,616,104 rows) within
+   1e-5 of the single-device frame at ``exch_factor`` 4 with no overflow,
+   the default factor's overflow and warning, the q16 route and its
+   raising backward, gs-loss gradients within ``GRAD_REL_TOL`` and one
+   ``train_step_fast_sharded``, the oracle ``render_sharded`` on the gate
+   scene launching no kernel, a data-parallel step of four orbit views
+   against the mean of four single-view gradients and an 8-step
+   ``fit_scene_dp`` with one densify; times and peak memory;
+7. prints a JSON line of phase [3a]'s numbers, one of phases [8] and [9],
+   a JSON line of per-kernel results and, last, the device line.
 
 Every check raises on failure; the exit code is nonzero and no result line
 is printed. There is no fallback: without CUDA the script exits 1.
@@ -100,9 +120,11 @@ is printed. There is no fallback: without CUDA the script exits 1.
 from __future__ import annotations
 
 import json
+import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 FLAG_SPLATS = 3_616_103            # the reference's bike-big.ply
@@ -148,6 +170,16 @@ DENSIFY_CAPACITY = 4_194_304
 DENSIFY_STEPS, DENSIFY_START, DENSIFY_INTERVAL, DENSIFY_RESET = 12, 4, 4, 10
 DENSIFY_PERCENT, DENSIFY_SHARE = 0.005, 0.01
 CLI_STEPS, CLI_VIEWS = 20, 3
+# Phase [8]: the viewer's key sequence (the reference's 0.1-unit and
+# 1-degree steps), the frames pulled from /stream, the CLI's orbit frames.
+VIEWER_KEYS = ("w", "w", "a", "right", "right", "up", "space", "d", "left", "shift")
+STREAM_FRAMES, ORBIT_FRAMES, BENCH_FRAMES = 30, 4, 60
+CLI_ROUTES = ("default", "q16", "depth", "orbit", "golden")
+# Phase [9]: logical shards on the one card; the data-parallel batch, the
+# fit's steps and its one densify (at the threshold near phase [5b]'s 1%
+# pick).
+MESH_SHARDS = 4
+DP_BATCH, DP_STEPS, DP_DENSIFY_AT, DP_DENSIFY_THRESHOLD = 4, 8, 4, 5e-5
 
 # The card's published peaks (NVIDIA H100 SXM data sheet): device memory
 # rate and float32 rate outside the tensor cores (a multiply-add counts 2).
@@ -299,6 +331,34 @@ def device_us(fn, calls: int = 50, tries: int = 3):
             f"{calls} calls, not {sum(want.values())} (lost: "
             f"{short(want - held)}; more: {short(held - want)}); run again")
     return None
+
+
+def device_top(fn, top: int = 8):
+    """What one call of ``fn`` runs on the device, from torch.profiler's
+    kernel and memset records of one profiled call (after a warm-up call):
+    (device ms in all, records, [(name, ms, count)] of the ``top`` names by
+    time). The profiler at times loses a record (``device_us``), so the sum
+    is a floor. None where it held no device record."""
+    from collections import defaultdict
+
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    ms, count = defaultdict(float), defaultdict(int)
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            ms[e.name[:70]] += e.time_range.elapsed_us() / 1e3
+            count[e.name[:70]] += 1
+    if not ms:
+        return None
+    ranked = sorted(ms, key=ms.get, reverse=True)[:top]
+    return sum(ms.values()), sum(count.values()), [(k, ms[k], count[k]) for k in ranked]
 
 
 def image_diff(a, b):
@@ -1510,10 +1570,10 @@ def check_densify(frame, cam, unpadded_step_ms):
     return launches
 
 
-def check_cli(scene, device):
+def check_cli(ply, device):
     """Phase [5b], continued: ``scripts/torch_train_cli.py`` in-process on
     the card through two routes, counters reset just before each run and
-    read just after: the PLY route on the uniform flagship written to a PLY
+    read just after: the PLY route on the uniform flagship's PLY ``ply``
     (CLI_VIEWS orbit views at 1024x512, CLI_STEPS steps, --densify) and the
     COLMAP route on a small workspace written here as
     tests/test_colmap.py writes its fixture. Returns the counts of each."""
@@ -1558,17 +1618,10 @@ def check_cli(scene, device):
             assert out[name][k] > 0, f"{k} kernel never launched by the {name} route"
 
     with tempfile.TemporaryDirectory() as d:
-        ply = os.path.join(d, "flagship.ply")
-        t0 = time.perf_counter()
-        ply_io.save_ply(ply, scene["means"], scene["quats"], scene["scales"],
-                        scene["opacities"], scene["colors"])
-        log(f"[5b] flagship PLY written in {time.perf_counter() - t0:.1f} s "
-            f"({os.path.getsize(ply) / 2**20:.0f} MiB)")
         run("ply", [ply, "--width", str(FLAG_W), "--height", str(FLAG_H),
                     "--views", str(CLI_VIEWS), "--orbit-radius", "8", "--steps",
                     str(CLI_STEPS), "--densify", "--densify-start", "5",
                     "--densify-interval", "5", "--log-every", "5"], d)
-        os.remove(ply)
 
         # a COLMAP workspace: two posed 64x64 views of a 40-splat scene
         w = h = 64
@@ -1637,7 +1690,523 @@ def check_small_gradients(device):
     assert max(worst.values()) <= GRAD_REL_TOL, "small frame: gradients disagree"
 
 
-def main() -> int:
+def check_viewer(flag_ply, gate_scene, dev):
+    """Phase [8]: the render CLI (``scripts/torch_render_cli.py``) in-process
+    on the uniform flagship's PLY through its routes, each PNG byte-equal to
+    the same frame rendered here and written by the same encoder; the
+    interactive viewer's server on port 0 (``/frame``, a key sequence
+    through ``/key``, ``/stream``, ``/stats``); then the fps bench at its
+    default and at the flagship. Counters are reset just before each CLI
+    route and the server session and read just after. Returns (launch
+    counts by route, numbers)."""
+    import dataclasses
+    import threading
+    import urllib.request
+
+    import numpy as np
+    import torch
+
+    from openglgaussiansplattingrenderer_tpu_torch import Camera, RenderConfig, Splats
+    from openglgaussiansplattingrenderer_tpu_torch.io import ply as ply_io
+    from openglgaussiansplattingrenderer_tpu_torch.io.png import save_png
+    from openglgaussiansplattingrenderer_tpu_torch.render import camera_args
+    from openglgaussiansplattingrenderer_tpu_torch.splats import inference_config
+    from openglgaussiansplattingrenderer_tpu_torch.viewer import interactive, offline
+
+    cli = load_script("torch_render_cli")
+    launches, nums = {}, {}
+    size = ["--width", str(FLAG_W), "--height", str(FLAG_H)]
+    opts = ["--tile-px", "32", "--chunk", "256", "--autotune"]
+
+    def cli_cfg(w, h):
+        """The config the CLI makes of ``--tile-px 32`` and its defaults."""
+        return RenderConfig.for_resolution(w, h, tile_px=32, chunk=256,
+                                           dup_capacity_factor=8.0)
+
+    def ref_pose():
+        cam = Camera(5.0, 0.5, -4.0, width=FLAG_W, height=FLAG_H)   # main.cpp:40-44
+        cam.set_rotation(-20.0, 40.0, 0.0)
+        return cam
+
+    with tempfile.TemporaryDirectory() as d:
+        def run(name, argv):
+            reset_launches()
+            t0 = time.perf_counter()
+            rc = cli.main(argv)
+            torch.cuda.synchronize()
+            launches[name] = read_launches()
+            assert rc == 0, f"the render CLI's {name} route exited {rc}"
+            log(f"[8] render CLI, {name} route: exit 0 in "
+                f"{time.perf_counter() - t0:.2f} s; launches {launches[name]}")
+
+        def same_png(path, image):
+            want = os.path.join(d, "want.png")
+            save_png(want, image)
+            with open(path, "rb") as a, open(want, "rb") as b:
+                return a.read() == b.read()
+
+        # the frames the routes must write, rendered here at the same pose
+        ref = Splats(flag_ply, FLAG_W, FLAG_H, device=dev, cfg=cli_cfg(FLAG_W, FLAG_H))
+        cam = ref_pose()
+        ref.autotune_capacity(cam)
+        img = ref.render_camera(cam)
+        assert float(img[..., 3].max()) > 0.5, "the reference pose sees nothing"
+
+        path = os.path.join(d, "default.png")
+        run("default", [flag_ply, "-o", path, *size, *opts, "--stats"])
+        assert same_png(path, img), "the default route's PNG is not the frame"
+
+        # q16 implies the packed depth key: its f32 frame is the packed one
+        # (phase [3] holds it so too); the 22-bit key's reordering of
+        # near-equal depths is logged beside it
+        f32_cfg = ref.cfg
+        ref.cfg = dataclasses.replace(f32_cfg, depth_key="packed")
+        img_packed = ref.render_camera(cam)
+        ref.cfg = inference_config(f32_cfg)
+        img_q = ref.render_camera(cam)
+        ref.cfg = f32_cfg
+        path = os.path.join(d, "q16.png")
+        run("q16", [flag_ply, "-o", path, *size, *opts, "--q16"])
+        assert same_png(path, img_q), "the q16 route's PNG is not the q16 frame"
+        q16_err = float(np.abs(img_q - img_packed).max())
+        packed_err = float(np.abs(img_packed - img).max())
+        assert q16_err <= Q16_FLAG_TOL, f"q16 route: {q16_err} from the packed f32 frame"
+
+        depth, alpha = ref.render_depth_camera(cam)
+        covered = alpha > 1e-3
+        lo, hi = depth[covered].min(), depth[covered].max()
+        depth = np.where(covered, (depth - lo) / max(hi - lo, 1e-12), 0.0)
+        path = os.path.join(d, "depth.png")
+        run("depth", [flag_ply, "-o", path, *size, *opts, "--depth"])
+        assert same_png(path, np.repeat(depth[..., None], 3, axis=-1).astype(np.float32)), (
+            "the depth route's PNG is not the depth map")
+
+        orbit_dir = os.path.join(d, "orbit")
+        run("orbit", [flag_ply, "--orbit", str(ORBIT_FRAMES), "--out-dir", orbit_dir,
+                      "--orbit-radius", "8", *size, *opts])
+        cams = offline.orbit_cameras((0.0, 0.0, 0.0), 8.0, ORBIT_FRAMES,
+                                     width=FLAG_W, height=FLAG_H)
+        for i, c in enumerate(cams):
+            frame = offline.render_frame(ref.scene, c, ref.cfg, device=dev)
+            assert same_png(os.path.join(orbit_dir, f"frame_{i:04d}.png"),
+                            frame[..., :3]), f"orbit frame {i} differs"
+
+        gate_ply = os.path.join(d, "gate.ply")
+        ply_io.save_ply(gate_ply, gate_scene["means"], gate_scene["quats"],
+                        gate_scene["scales"], gate_scene["opacities"], gate_scene["colors"])
+        gate_argv = ["--pos", "0", "0", "-6", "--rot", "0", "0", "0", "--width",
+                     str(GATE_W), "--height", str(GATE_H), "--tile-px", "32"]
+        path = os.path.join(d, "golden.png")
+        run("golden", [gate_ply, "-o", path, "--golden", *gate_argv])
+        gs = Splats(gate_ply, GATE_W, GATE_H, device=dev, cfg=cli_cfg(GATE_W, GATE_H))
+        gcam = Camera(0.0, 0.0, -6.0, width=GATE_W, height=GATE_H)
+        a = camera_args(gcam)
+        gold = gs.cpu_render(a["view"], GATE_W, GATE_H, a["focal_x"], a["focal_y"],
+                             a["tan_fovx"], a["tan_fovy"], a["vp"], save_path=None)
+        assert same_png(path, gold), "the golden route's PNG is not the golden frame"
+        gold_vs_card = float(np.abs(gold - gs.render_camera(gcam)).max())
+        log(f"[8] CLI routes: every PNG equal to the frame rendered here; q16 vs the "
+            f"packed f32 frame max abs {q16_err:.4e} (limit {Q16_FLAG_TOL}); packed vs "
+            f"pair (the default) {packed_err:.4e}; golden 10k frame vs the card's "
+            f"kernels {gold_vs_card:.4e}")
+        nums.update(cli_q16_vs_packed=q16_err, cli_packed_vs_pair=packed_err,
+                    golden_vs_card=gold_vs_card)
+
+    # ---- the interactive viewer's server ----------------------------------
+    srv = interactive.make_server(ref, ref_pose(), port=0)
+    thread = threading.Thread(target=srv.serve_forever, daemon=True)
+    thread.start()
+
+    def get(path):
+        with urllib.request.urlopen(f"http://127.0.0.1:{srv.server_address[1]}{path}",
+                                    timeout=300) as r:
+            return r.read()
+
+    try:
+        reset_launches()
+        t0 = time.perf_counter()
+        first = get("/frame")
+        for k in VIEWER_KEYS:
+            get(f"/key?key={k}")
+        srv.stream_max_frames = STREAM_FRAMES
+        body = get("/stream")          # the queued keys apply at its first frame
+        moved = get("/frame")
+        stats = json.loads(get("/stats"))
+        torch.cuda.synchronize()
+        launches["viewer"] = read_launches()
+        session_s = time.perf_counter() - t0
+    finally:
+        srv.shutdown()
+        srv.server_close()
+        thread.join(timeout=60)
+    delivered = body.count(b"--gsframe")
+    host = ref_pose()
+    for k in VIEWER_KEYS:
+        interactive.apply_key(host, k)
+    served = srv.state.camera
+    assert delivered == STREAM_FRAMES, f"/stream delivered {delivered} of {STREAM_FRAMES}"
+    assert np.array_equal(served.position, host.position) and np.array_equal(
+        served.rotation, host.rotation), (served.position, host.position)
+    assert first == interactive.encode_frame(ref.render_camera(ref_pose()), "PNG"), (
+        "/frame is not the frame at the start pose")
+    assert moved == interactive.encode_frame(ref.render_camera_u8(host), "PNG"), (
+        "/frame after the keys is not render_camera_u8 at the moved pose")
+    assert stats["stream_frames"] == STREAM_FRAMES and stats["stream_fps"] > 0, stats
+    for k in ("cumsum", "expand", "composite"):
+        assert launches["viewer"][k] > 0, f"{k} kernel never launched by the viewer"
+
+    def render_only():
+        ref.render_camera_u8(host, fetch_stats=False)
+        torch.cuda.synchronize()
+
+    render_only()
+    t0 = time.perf_counter()
+    for _ in range(10):
+        render_only()
+    render_ms = (time.perf_counter() - t0) / 10 * 1e3
+    nums.update(viewer_render_only_ms=render_ms, viewer_stream_fps=stats["stream_fps"],
+                viewer_encoder=stats["encoder"])
+    log(f"[8] viewer: /frame equal to the frame, {len(VIEWER_KEYS)} keys through /key "
+        f"moved the camera to pos {host.position.tolist()} rot "
+        f"{host.rotation.tolist()} as apply_key does on the host, /frame there equal "
+        f"to render_camera_u8; /stream delivered {delivered} frames at "
+        f"{stats['stream_fps']} fps (encoder {stats['encoder']}); render-only "
+        f"(render_camera_u8 + sync) {render_ms:.3f} ms; session {session_s:.1f} s; "
+        f"launches {launches['viewer']}")
+    del ref
+
+    bench = load_script("torch_viewer_fps_bench")
+    for name, argv in (("default", []), ("flagship", ["--splats", str(FLAG_SPLATS)])):
+        t0 = time.perf_counter()
+        res = bench.main(argv + ["--frames", str(BENCH_FRAMES)])
+        assert res["frames_delivered"] == BENCH_FRAMES, res
+        nums[f"fps_bench_{name}"] = res
+        log(f"[8] fps bench, {name}: {time.perf_counter() - t0:.1f} s")
+    return launches, nums
+
+
+def check_multi_device(scenes, gate, dev, mesh):
+    """Phase [9]: the port's single-controller mesh ``mesh``: MESH_SHARDS
+    logical shards on the one card (``make_mesh(devices=["cuda:0"] * 4)``),
+    or with ``--cards N`` N cards (``make_mesh(N)``). The fast sharded frame
+    against the single-device frame on both flagships, its q16 route, its
+    gradients and one ``train_step_fast_sharded``; the oracle
+    ``render_sharded`` on the gate scene; a data-parallel step of four
+    orbit views against the mean of four single-view gradients, then
+    ``fit_scene_dp`` with density control. Counters are reset before each
+    route and read after. Returns (launch counts by route, numbers)."""
+    import dataclasses
+    import warnings
+
+    import numpy as np
+    import torch
+
+    from openglgaussiansplattingrenderer_tpu_torch import Camera, RenderConfig
+    from openglgaussiansplattingrenderer_tpu_torch.parallel import data_parallel as dp
+    from openglgaussiansplattingrenderer_tpu_torch.parallel import fast_sharded as fs
+    from openglgaussiansplattingrenderer_tpu_torch.parallel import sharded as sh
+    from openglgaussiansplattingrenderer_tpu_torch.render import (
+        autotune_capacity,
+        render_arrays,
+    )
+    from openglgaussiansplattingrenderer_tpu_torch.splats import inference_config
+    from openglgaussiansplattingrenderer_tpu_torch.train import densify as dn
+    from openglgaussiansplattingrenderer_tpu_torch.train import losses
+    from openglgaussiansplattingrenderer_tpu_torch.train.trainer import (
+        TrainConfig,
+        camera_bundles,
+        make_optimizer,
+        params_from_raw,
+        raw_from_params,
+    )
+    from openglgaussiansplattingrenderer_tpu_torch.viewer.offline import orbit_cameras
+
+    shards = mesh.size
+    zero_drop = float(shards)           # an exchange factor that drops no record
+
+    def sync_all():
+        for d in set(mesh.devices):
+            torch.cuda.synchronize(d)
+    launches, nums = {}, {}
+    fcfg0 = RenderConfig.for_resolution(FLAG_W, FLAG_H, tile_px=32, chunk=256)
+    fcam = Camera(0.0, 0.0, -8.0, width=FLAG_W, height=FLAG_H)
+    frames = {}
+    for name in ("uniform", "clustered"):
+        f = Frame(scenes[name], fcam, fcfg0, dev)
+        f.cfg = autotune_capacity(f.params, *f.args[:6], FLAG_W, FLAG_H, fcfg0)
+        frames[name] = f
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+
+    def sharded(f, params, exch, cfg=None):
+        return fs.render_fast_sharded(params, *f.args, cfg or f.cfg, mesh, exch_factor=exch)
+
+    # ---- the fast sharded frame against the single-device frame ------------
+    with torch.no_grad():
+        for name, f in frames.items():
+            padded = sh.pad_scene_for_mesh(f.params, shards)
+            single, st1 = f.render()
+            reset_launches()
+            img, st = sharded(f, padded, zero_drop)
+            torch.cuda.synchronize()
+            if name == "uniform":
+                launches["sharded"] = read_launches()
+            st = {k: int(v) for k, v in st.items()}
+            diff = float((img - single).abs().max())
+            assert st["overflow"] == 0, f"{name} sharded: overflow {st['overflow']}"
+            assert st["num_records"] == int(st1["num_records"]), (st, int(st1["num_records"]))
+            assert diff <= 1e-5, f"{name} sharded frame: max abs {diff} from one device"
+            ms_s = cuda_ms(lambda: sharded(f, padded, zero_drop))
+            ms_1 = cuda_ms(f.render)
+            if name == "uniform":
+                for tag, fn, ms in (("sharded", lambda: sharded(f, padded, zero_drop),
+                                     ms_s), ("single", f.render, ms_1)):
+                    top = device_top(fn)
+                    if top is None:
+                        log(f"[9] {tag} frame on the device alone: not measured")
+                        continue
+                    dev_ms, records, names = top
+                    nums[f"uniform_{tag}_device"] = dict(
+                        device_ms=dev_ms, records=records, busy_share=dev_ms / ms,
+                        top=[list(t) for t in names])
+                    log(f"[9] uniform {tag} frame on the device alone (profiler, one "
+                        f"call, summed over its cards): {dev_ms:.3f} ms in {records} "
+                        f"records, {dev_ms / ms:.1%} of its {ms:.3f} ms; the most: " + "; ".join(
+                            f"{n} {t:.3f} ms x{c}" for n, t, c in names))
+            nums[f"{name}_sharded"] = dict(
+                rows=padded["means"].shape[0], max_abs_diff=diff, bit_equal=diff == 0.0,
+                sharded_ms=ms_s, single_ms=ms_1, **st,
+                cap_exch=fs.exchange_capacity(f.cfg, padded["means"].shape[0] // shards,
+                                              shards, zero_drop))
+            log(f"[9] {name} flagship padded to {padded['means'].shape[0]} rows, "
+                f"{shards} shards, exch_factor {zero_drop}: max abs diff from "
+                f"the single-device frame {diff:.3e} (bit-equal {diff == 0.0}); stats "
+                f"{st}; sharded frame {ms_s:.3f} ms vs single {ms_1:.3f} ms; peak "
+                f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+            if name == "uniform":
+                assert launches["sharded"]["composite"] == shards, launches["sharded"]
+                for k in ("cumsum", "expand", "composite"):
+                    assert launches["sharded"][k] > 0, f"{k} never launched by the sharded frame"
+                img2, st2 = sharded(f, padded, 2.0)
+                with warnings.catch_warnings(record=True) as wl:
+                    warnings.simplefilter("always")
+                    ov = fs.warn_on_sharded_overflow(st2, 2.0, shards)
+                fired = any("dropped" in str(w.message) for w in wl)
+                assert fired == (ov > 0), (ov, fired)
+                diff2 = float((img2 - single).abs().max())
+                if ov == 0:
+                    assert diff2 <= 1e-5, diff2
+                nums["uniform_exch2"] = dict(overflow=ov, warned=fired, max_abs_diff=diff2)
+                log(f"[9] uniform, exch_factor 2.0 (default): overflow {ov}, warning "
+                    f"fired {fired}, max abs diff {diff2:.3e}")
+                # q16 through the exchange. Its merge sorts the 22-bit packed
+                # key, the f32 merge the exact pair: its f32 frame is the
+                # packed one of one device (as in phase [3])
+                cfg_q = inference_config(f.cfg)
+                img_q, _ = sharded(f, padded, zero_drop, cfg_q)
+                packed1, _ = f.with_cfg(dataclasses.replace(f.cfg, depth_key="packed")).render()
+                q1, _ = f.with_cfg(cfg_q).render()
+                q_err = float((img_q - packed1).abs().max())
+                q_single = float((img_q - q1).abs().max())
+                q_pair = float((img_q - img).abs().max())
+                assert q_err <= Q16_FLAG_TOL, f"sharded q16: {q_err} from the packed f32 frame"
+                assert q_single <= Q16_FLAG_TOL, f"sharded q16: {q_single} from one device's"
+                del img2, img_q, packed1, q1
+            del img, single, padded
+
+    # q16's backward raises
+    f = frames["uniform"]
+    p = {k: v.detach().requires_grad_(True)
+         for k, v in sh.pad_scene_for_mesh(f.params, shards).items()}
+    img_q, _ = sharded(f, p, zero_drop, inference_config(f.cfg))
+    try:
+        torch.autograd.grad(img_q[..., :3].mean(), list(p.values()))
+        raise AssertionError("the sharded q16 backward did not raise")
+    except NotImplementedError as e:
+        assert "inference-only" in str(e)
+    del img_q, p
+    nums["uniform_q16"] = dict(vs_packed_f32=q_err, vs_single_q16=q_single,
+                               vs_sharded_f32=q_pair, backward_raises=True)
+    log(f"[9] sharded q16 frame vs one device's packed f32 frame: max abs {q_err:.4e} "
+        f"(limit {Q16_FLAG_TOL}); vs one device's q16 frame {q_single:.4e}; vs the "
+        f"sharded f32 (exact pair key) frame {q_pair:.4e}; its backward raises "
+        "NotImplementedError")
+
+    # ---- gradients of the gs loss, sharded vs one device --------------------
+    with torch.no_grad():
+        target = f.render()[0][..., :3].contiguous()
+    colors = f.params["colors"].cpu().numpy()
+    noisy = np.clip(colors + np.random.default_rng(0).normal(0, 40, colors.shape),
+                    5, 250).astype(np.float32)
+    start = dict(f.params, colors=torch.as_tensor(noisy).to(dev))
+    n = start["means"].shape[0]
+    raw = raw_from_params(sh.pad_scene_for_mesh(start, shards))
+
+    def grads(render):
+        leaves = {k: v.detach().requires_grad_(True) for k, v in raw.items()}
+        loss = losses.gs_loss(render(params_from_raw(leaves))[..., :3], target, 0.2)
+        return float(loss.detach()), dict(zip(leaves, torch.autograd.grad(loss, list(leaves.values()))))
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    loss_s, g_s = grads(lambda p: sharded(f, p, zero_drop)[0])
+    torch.cuda.synchronize()
+    fb_s = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    loss_1, g_1 = grads(lambda p: render_arrays({k: v[:n] for k, v in p.items()},
+                                                *f.args, f.cfg)[0])
+    torch.cuda.synchronize()
+    fb_1 = (time.perf_counter() - t0) * 1e3
+    share = {}
+    for k, g in g_1.items():
+        scale = float(g[:n].abs().max())
+        share[k] = float((g_s[k][:n] - g[:n]).abs().max()) / max(scale, 1e-30)
+    del g_s, g_1
+    assert max(share.values()) <= GRAD_REL_TOL, f"sharded gradients: {share}"
+    optimizer = make_optimizer(TrainConfig(lambda_dssim=0.2))
+    raw_shards = sh.shard_params(raw, mesh)
+    reset_launches()
+    sync_all()
+    t0 = time.perf_counter()
+    new_raw, _, loss_step, st = fs.train_step_fast_sharded(
+        raw_shards, [optimizer.init(s) for s in raw_shards], target, *f.args[:6], width=FLAG_W,
+        height=FLAG_H, cfg=f.cfg, mesh=mesh, optimizer=optimizer,
+        exch_factor=zero_drop, lambda_dssim=0.2)
+    sync_all()
+    step_ms = (time.perf_counter() - t0) * 1e3
+    launches["sharded_train"] = read_launches()
+    assert int(st["overflow"]) == 0 and abs(float(loss_step) - loss_s) <= 1e-6
+    for k, v in sh.gather_shards(new_raw, dev).items():
+        assert bool(torch.isfinite(v).all()), f"sharded train step: non-finite {k}"
+    for k in ("cumsum", "expand", "segsum", "composite", "composite_bwd"):
+        assert launches["sharded_train"][k] > 0, f"{k} never launched by the sharded step"
+    del new_raw, raw_shards
+    nums["sharded_grads"] = dict(loss_sharded=loss_s, loss_single=loss_1,
+                                 worst_share=share, fwd_bwd_sharded_ms=fb_s,
+                                 fwd_bwd_single_ms=fb_1, train_step_ms=step_ms,
+                                 peak_gib=torch.cuda.max_memory_allocated() / 2**30)
+    log(f"[9] gs loss (lambda 0.2) gradients, sharded vs one device, max abs / max |g|: "
+        + ", ".join(f"{k} {v:.3e}" for k, v in share.items())
+        + f" (limit {GRAD_REL_TOL}); loss {loss_s:.6f} vs {loss_1:.6f}; forward + "
+        f"backward {fb_s:.1f} ms sharded, {fb_1:.1f} ms single (host clock, first "
+        f"call); train_step_fast_sharded {step_ms:.1f} ms; launches "
+        f"{launches['sharded_train']}; peak "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+
+    # ---- the oracle on the gate scene ---------------------------------------
+    ocfg = dataclasses.replace(gate.cfg, use_pallas=False, max_per_tile=2048)
+    with torch.no_grad():
+        reset_launches()
+        img_o = sh.render_sharded(gate.params, *gate.args, ocfg, mesh)
+        torch.cuda.synchronize()
+        launches["oracle_sharded"] = read_launches()
+        img_g, st_g = fs.render_fast_sharded(gate.params, *gate.args, gate.cfg, mesh,
+                                             exch_factor=zero_drop)
+    assert not any(launches["oracle_sharded"].values()), launches["oracle_sharded"]
+    assert int(st_g["overflow"]) == 0
+    err, bad = image_diff(img_o, img_g)
+    assert err <= GATE_MAX_ABS and bad <= GATE_MAX_PX, (
+        f"sharded oracle vs fast sharded gate frame: {err} on {bad} px")
+    nums["oracle_gate"] = dict(max_abs=err, px_above_1e3=bad)
+    log(f"[9] render_sharded (oracle) on the gate scene vs the fast sharded frame: "
+        f"max abs {err:.3e}, {bad} px > 1e-3 (limits {GATE_MAX_ABS}, {GATE_MAX_PX}); "
+        f"no kernel launched")
+    del img_o, img_g
+
+    # ---- data-parallel: four orbit views of the flagship ---------------------
+    cams = orbit_cameras((0.0, 0.0, 0.0), 8.0, DP_BATCH, width=FLAG_W, height=FLAG_H)
+    bundles = camera_bundles(cams, dev)
+    cap = max(autotune_capacity(f.params, *b, FLAG_W, FLAG_H, fcfg0).capacity_records
+              for b in bundles)
+    dcfg = dataclasses.replace(fcfg0, capacity_records=cap)
+    with torch.no_grad():
+        targets = [render_arrays(f.params, *b, FLAG_W, FLAG_H, dcfg)[0][..., :3].contiguous()
+                   for b in bundles]
+    tc = TrainConfig(lambda_dssim=0.2)
+    raw = raw_from_params(start)
+    keys = tuple(sorted(raw))
+    step = dp.make_dp_train_step(dcfg, tc, FLAG_W, FLAG_H, mesh, batch=DP_BATCH,
+                                 param_keys=keys)
+    reps = dp.replicate_tree(raw, mesh)
+    args = dp.stack_view_batch(targets, bundles, dev)
+    opt0 = step.init(reps)
+    sync_all()
+    t0 = time.perf_counter()
+    new_raw, new_opt, loss_dp, _ = step(reps, opt0, *args)
+    sync_all()
+    dp_first_ms = (time.perf_counter() - t0) * 1e3
+    wall = []
+    for _ in range(3):      # the same step again, past each card's first launches
+        t0 = time.perf_counter()
+        step(reps, opt0, *args)
+        sync_all()
+        wall.append((time.perf_counter() - t0) * 1e3)
+    dp_ms = statistics.median(wall)
+    mean_g = {k: torch.zeros_like(v) for k, v in raw.items()}
+    for t, b in zip(targets, bundles):
+        leaves = {k: v.detach().requires_grad_(True) for k, v in raw.items()}
+        img, _ = render_arrays(params_from_raw(leaves), *b, FLAG_W, FLAG_H, dcfg)
+        loss = losses.gs_loss(img[..., :3], t, tc.lambda_dssim)
+        for k, g in zip(keys, torch.autograd.grad(loss, [leaves[k] for k in keys])):
+            mean_g[k] += g / DP_BATCH
+    # Adam's first moment after one step is (1 - b1) times the gradient it used
+    dp_share = {k: float((new_opt[0]["mu"][k] / 0.1 - g).abs().max())
+                / max(float(g.abs().max()), 1e-30) for k, g in mean_g.items()}
+    assert max(dp_share.values()) <= GRAD_REL_TOL, f"dp step gradient: {dp_share}"
+    for r in new_raw[1:]:
+        assert all(torch.equal(r[k].to(dev), new_raw[0][k].to(dev)) for k in keys), (
+            "replicas differ")
+    del new_raw, new_opt, mean_g, reps
+    nums["dp_step"] = dict(ms=dp_ms, first_ms=dp_first_ms, loss=float(loss_dp),
+                           worst_share=dp_share,
+                           capacity=cap,
+                           peak_gib=torch.cuda.max_memory_allocated() / 2**30)
+    log(f"[9] make_dp_train_step, batch {DP_BATCH} orbit views on {shards} shards "
+        f"(capacity {cap}): {dp_ms:.1f} ms (host clock, median of 3; the first "
+        f"call {dp_first_ms:.1f} ms); its gradient "
+        f"(Adam's mu / 0.1) vs the mean of four single-view gradients, max abs / max "
+        "|g|: " + ", ".join(f"{k} {v:.3e}" for k, v in dp_share.items())
+        + f" (limit {GRAD_REL_TOL})")
+
+    # fit_scene_dp with density control: DP_STEPS steps, one densify
+    means = start["means"].cpu().numpy()
+    dc = dn.DensifyConfig(capacity=DENSIFY_CAPACITY, grad_threshold=DP_DENSIFY_THRESHOLD,
+                          percent_dense=DENSIFY_PERCENT,
+                          scene_extent=float(np.abs(means - means.mean(axis=0)).max()),
+                          start_step=DP_DENSIFY_AT, interval=DP_DENSIFY_AT,
+                          stop_step=DP_DENSIFY_AT + 1)
+    reset_launches()
+    sync_all()
+    t0 = time.perf_counter()
+    _, alive, hist = dp.fit_scene_dp(
+        start, targets, cams, dcfg, TrainConfig(steps=DP_STEPS, lambda_dssim=0.2),
+        mesh=mesh, batch=DP_BATCH, dc=dc, log_every=1, verbose=False)
+    sync_all()
+    fit_s = time.perf_counter() - t0
+    launches["dp"] = read_launches()
+    assert all(np.isfinite(h["loss"]) for h in hist), hist
+    assert int(alive.sum()) == hist[-1]["alive"]
+    for k in ("cumsum", "expand", "segsum", "composite", "composite_bwd"):
+        assert launches["dp"][k] > 0, f"{k} never launched by fit_scene_dp"
+    nums["fit_scene_dp"] = dict(seconds=fit_s, losses=[h["loss"] for h in hist],
+                                alive=[h["alive"] for h in hist],
+                                peak_gib=torch.cuda.max_memory_allocated() / 2**30)
+    log(f"[9] fit_scene_dp, {DP_STEPS} steps of batch {DP_BATCH}, densify at step "
+        f"{DP_DENSIFY_AT} (capacity {DENSIFY_CAPACITY}): {fit_s:.1f} s; loss "
+        + " ".join(f"{h['loss']:.5f}" for h in hist) + "; alive "
+        + " ".join(str(h["alive"]) for h in hist) + f"; launches {launches['dp']}; "
+        f"peak {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    return launches, nums
+
+
+def main(argv=None) -> int:
+    import argparse
+
+    ap = argparse.ArgumentParser(description="Smoke run of the PyTorch/CUDA port.")
+    ap.add_argument("--cards", type=int, default=0, metavar="N",
+                    help="run only phase [9], over N distinct CUDA cards "
+                    "(make_mesh(N)); by default every phase runs on one card")
+    args = ap.parse_args(argv)
     import numpy as np  # noqa: F401  (the port needs it; fail early)
     import torch
 
@@ -1649,6 +2218,7 @@ def main() -> int:
     from openglgaussiansplattingrenderer_tpu_torch import Camera, RenderConfig
     from openglgaussiansplattingrenderer_tpu_torch.io import ply as ply_io
     from openglgaussiansplattingrenderer_tpu_torch.ops.kernels import build
+    from openglgaussiansplattingrenderer_tpu_torch.parallel import sharded as sh
     from openglgaussiansplattingrenderer_tpu_torch.render import autotune_capacity
 
     dev = torch.device("cuda")
@@ -1692,8 +2262,18 @@ def main() -> int:
         f"{ {k: f.cfg.capacity_records for k, f in frames.items()} }")
     gcfg = RenderConfig.for_resolution(GATE_W, GATE_H, tile_px=32, chunk=256,
                                        dup_capacity_factor=8.0)
-    gate = Frame(ply_io.make_synthetic_scene(GATE_SPLATS, seed=7, extent=2.5),
+    gate_scene = ply_io.make_synthetic_scene(GATE_SPLATS, seed=7, extent=2.5)
+    gate = Frame(gate_scene,
                  Camera(0.0, 0.0, -6.0, width=GATE_W, height=GATE_H), gcfg, dev)
+    if args.cards:
+        del frames
+        mesh_launches, mesh_nums = check_multi_device(scenes, gate, dev,
+                                                      sh.make_mesh(args.cards))
+        log(json.dumps({"multi_device": mesh_nums, "launches": mesh_launches}))
+        log(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}))
+        return 0
 
     # ---- 2. kernels against their plain versions --------------------------
     results = {}
@@ -1771,13 +2351,22 @@ def main() -> int:
     # ---- 5b. adaptive density control at capacity, and the training CLI ---
     t0 = time.perf_counter()
     densify_launches = check_densify(frames["uniform"], fcam, train_ms)
-    cli_launches = check_cli(scenes["uniform"], dev)
+    # the uniform flagship as a PLY, for the training CLI and the viewer phase
+    ply_dir = tempfile.TemporaryDirectory()
+    flag_ply = os.path.join(ply_dir.name, "flagship.ply")
+    t1 = time.perf_counter()
+    sc = scenes["uniform"]
+    ply_io.save_ply(flag_ply, sc["means"], sc["quats"], sc["scales"], sc["opacities"],
+                    sc["colors"])
+    log(f"[5b] flagship PLY written in {time.perf_counter() - t1:.1f} s "
+        f"({os.path.getsize(flag_ply) / 2**20:.0f} MiB)")
+    cli_launches = check_cli(flag_ply, dev)
     log(f"[5b] the phase took {time.perf_counter() - t0:.1f} s")
 
     # ---- 6. forward + backward of the other scenes ------------------------
     check_fwdbwd("uniform pair", frames["uniform"])
     check_fwdbwd("clustered pair", frames["clustered"])
-    del frames, scenes
+    del frames
     mcfg0 = RenderConfig.for_resolution(MSPLATS_W, MSPLATS_H, tile_px=32,
                                         chunk=MSPLATS_CHUNK)
     msplats = Frame(
@@ -1793,6 +2382,19 @@ def main() -> int:
     check_fwdbwd(f"{MSPLATS} splats {MSPLATS_W}x{MSPLATS_H}", msplats)
     stage_times(f"{MSPLATS} splats {MSPLATS_W}x{MSPLATS_H}", msplats)
     check_small_gradients(dev)
+
+    # ---- 8. the viewer, the render CLI and the fps bench --------------------
+    t0 = time.perf_counter()
+    viewer_launches, viewer_nums = check_viewer(flag_ply, gate_scene, dev)
+    ply_dir.cleanup()
+    log(f"[8] the phase took {time.perf_counter() - t0:.1f} s")
+
+    # ---- 9. the multi-device layer, four shards on the one card -------------
+    t0 = time.perf_counter()
+    mesh_launches, mesh_nums = check_multi_device(
+        scenes, gate, dev, sh.make_mesh(devices=["cuda:0"] * MESH_SHARDS))
+    del scenes
+    log(f"[9] the phase took {time.perf_counter() - t0:.1f} s")
 
     # ---- 2, continued: the probe kernels (3.2 GB written a launch, and a
     # rebuild of the library: kept behind every time of the main paths) -----
@@ -1819,9 +2421,15 @@ def main() -> int:
                      "densify_phase_launches": densify_launches[name],
                      "cli_ply_launches": cli_launches["ply"][name],
                      "cli_colmap_launches": cli_launches["colmap"][name],
+                     "viewer_launches": viewer_launches["viewer"][name],
+                     "cli_launches": sum(viewer_launches[r][name] for r in CLI_ROUTES),
+                     "sharded_launches": mesh_launches["sharded"][name],
+                     "sharded_train_launches": mesh_launches["sharded_train"][name],
+                     "dp_launches": mesh_launches["dp"][name],
                      **results[name]})
     log(f"[7] card and power limit, again beside the results: {card}")
     log(json.dumps({"oracle": oracle}))
+    log(json.dumps({"viewer": viewer_nums, "multi_device": mesh_nums}))
     log(json.dumps({"kernels": rows}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -2,8 +2,8 @@
 
 The reference vendors stb_image / stb_image_write purely for PNG dumps
 (``src/Splats.cpp:516-540`` ``saveImage``). Here we use PIL when available and
-fall back to a minimal pure-Python PNG codec (zlib + filters) so the framework
-has zero hard image dependencies.
+fall back to a minimal pure-Python PNG writer (zlib, filter 0 on every row),
+``encode_png``, so the framework has zero hard image dependencies.
 """
 
 from __future__ import annotations
@@ -38,7 +38,8 @@ def save_png(path: str, image: np.ndarray) -> None:
     if _HAVE_PIL:
         Image.fromarray(img).save(path)
         return
-    _write_png_fallback(path, img)  # pragma: no cover
+    with open(path, "wb") as f:
+        f.write(encode_png(img))
 
 
 def load_png(path: str) -> np.ndarray:
@@ -48,7 +49,14 @@ def load_png(path: str) -> np.ndarray:
     raise RuntimeError("PNG loading requires PIL")  # pragma: no cover
 
 
-def _write_png_fallback(path: str, img: np.ndarray) -> None:  # pragma: no cover
+def encode_png(image: np.ndarray) -> bytes:
+    """(H, W, 3|4) uint8 image -> the bytes of a PNG file, in memory, with
+    no PIL: 8-bit RGB or RGBA, every row filter 0, zlib level 6. The same
+    array always gives the same bytes."""
+    img = np.ascontiguousarray(image)
+    if img.dtype != np.uint8 or img.ndim != 3 or img.shape[2] not in (3, 4):
+        raise ValueError(f"encode_png takes (H, W, 3|4) uint8, got "
+                         f"{img.dtype} {img.shape}")
     h, w, c = img.shape
     color_type = {3: 2, 4: 6}[c]
     raw = b"".join(b"\x00" + img[i].tobytes() for i in range(h))
@@ -58,7 +66,5 @@ def _write_png_fallback(path: str, img: np.ndarray) -> None:  # pragma: no cover
                 + struct.pack(">I", zlib.crc32(tag + data) & 0xFFFFFFFF))
 
     ihdr = struct.pack(">IIBBBBB", w, h, 8, color_type, 0, 0, 0)
-    png = (b"\x89PNG\r\n\x1a\n" + chunk(b"IHDR", ihdr)
-           + chunk(b"IDAT", zlib.compress(raw, 6)) + chunk(b"IEND", b""))
-    with open(path, "wb") as f:
-        f.write(png)
+    return (b"\x89PNG\r\n\x1a\n" + chunk(b"IHDR", ihdr)
+            + chunk(b"IDAT", zlib.compress(raw, 6)) + chunk(b"IEND", b""))

@@ -39,11 +39,11 @@ def padded_dims(width: int, height: int, cfg: RenderConfig) -> Tuple[int, int]:
     return wp, hp
 
 
-def tile_pixel_coords(width: int, height: int, cfg: RenderConfig,
-                      device: torch.device | str = "cpu"):
-    """Pixel-centre coordinates per tile, flattened: (T, P) x and y, tiles
-    ordered ``tileY * grid_x + tileX`` (preprocess.glsl:153), pixels row
-    major within a tile."""
+def tile_pixel_coords(width: int, height: int, cfg: RenderConfig, *,
+                      device: torch.device | str):
+    """Pixel-centre coordinates per tile on ``device``, flattened: (T, P) x
+    and y, tiles ordered ``tileY * grid_x + tileX`` (preprocess.glsl:153),
+    pixels row major within a tile."""
     wp, hp = padded_dims(width, height, cfg)
     pw, ph = wp // cfg.grid_x, hp // cfg.grid_y
     gx, gy = cfg.grid_x, cfg.grid_y
@@ -77,7 +77,7 @@ def composite(records: Dict[str, torch.Tensor], tile_bounds: torch.Tensor,
     """Composite sorted records into an (H, W, 4) image in [0, 1]. ``aux``
     holds ``dropped_by_cap``, the records past ``max_per_tile`` that no
     chunk reached."""
-    pxs, pys = tile_pixel_coords(width, height, cfg, tile_bounds.device)
+    pxs, pys = tile_pixel_coords(width, height, cfg, device=tile_bounds.device)
     rgb, trans = composite_ranges(records, tile_bounds[:-1], tile_bounds[1:],
                                   pxs, pys, cfg)
     image = assemble_image(rgb, trans, width, height, cfg)

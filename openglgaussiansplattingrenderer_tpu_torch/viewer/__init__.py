@@ -3,3 +3,4 @@ from openglgaussiansplattingrenderer_tpu_torch.viewer.offline import (  # noqa: 
     render_orbit,
     render_frame,
 )
+from openglgaussiansplattingrenderer_tpu_torch.viewer import interactive  # noqa: F401

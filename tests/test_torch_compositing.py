@@ -72,7 +72,7 @@ def test_parallel_equals_sequential_random(chunk):
     rng = np.random.default_rng(1234)
     opts = dict(grid_x=2, grid_y=2, chunk=chunk, max_per_tile=64)
     cfg = RenderConfig(**opts)
-    pxs, pys = (v.numpy() for v in compositing.tile_pixel_coords(8, 8, cfg))
+    pxs, pys = (v.numpy() for v in compositing.tile_pixel_coords(8, 8, cfg, device="cpu"))
     rec = _random_records(rng, 120, 8.0)
     # tile 3 is empty; tile 1 starts past tile 0's records
     starts = np.array([0, 40, 90, 90], np.int32)
@@ -145,5 +145,5 @@ def test_dropped_by_cap_matches_jax():
     assert int(aux["dropped_by_cap"]) == int(aux_j["dropped_by_cap"]) == 22 + 42
     np.testing.assert_allclose(img.numpy(), np.asarray(img_j), atol=1e-6)
     np.testing.assert_array_equal(compositing.tile_pixel_coords(
-        16, 16, RenderConfig(**opts))[0].numpy(), np.asarray(
+        16, 16, RenderConfig(**opts), device="cpu")[0].numpy(), np.asarray(
         jax_compositing.tile_pixel_coords(16, 16, JaxConfig(**opts))[0]))

@@ -339,9 +339,14 @@ def test_port_never_imports_jax():
             "openglgaussiansplattingrenderer_tpu_torch.io.colmap, "
             "openglgaussiansplattingrenderer_tpu_torch.utils.timing, "
             "openglgaussiansplattingrenderer_tpu_torch.viewer.offline, "
+            "openglgaussiansplattingrenderer_tpu_torch.viewer.interactive, "
+            "openglgaussiansplattingrenderer_tpu_torch.parallel.sharded, "
+            "openglgaussiansplattingrenderer_tpu_torch.parallel.fast_sharded, "
+            "openglgaussiansplattingrenderer_tpu_torch.parallel.data_parallel, "
             "importlib.util as u; "
-            "s = u.spec_from_file_location('cli', 'scripts/torch_train_cli.py'); "
-            "s.loader.exec_module(u.module_from_spec(s)); "
+            "[s.loader.exec_module(u.module_from_spec(s)) for s in ("
+            "u.spec_from_file_location(n, f'scripts/{n}.py') for n in ("
+            "'torch_train_cli', 'torch_render_cli', 'torch_viewer_fps_bench'))]; "
             "assert 'jax' not in sys.modules, 'jax imported'")
     repo = str(PKG_DIR.parent)
     env = {**os.environ, "PYTHONPATH": repo}
@@ -355,7 +360,9 @@ def test_port_never_imports_jax():
     # and neither do the scripts of the port that run on the card
     files += [PKG_DIR.parent / "chip_smoke.py",
               PKG_DIR.parent / "scripts" / "torch_gate_divergence.py",
-              PKG_DIR.parent / "scripts" / "torch_train_cli.py"]
+              PKG_DIR.parent / "scripts" / "torch_train_cli.py",
+              PKG_DIR.parent / "scripts" / "torch_render_cli.py",
+              PKG_DIR.parent / "scripts" / "torch_viewer_fps_bench.py"]
     for f in files:
         assert not pat.search(f.read_text()), f
 
