@@ -3,6 +3,8 @@
 
     python3 chip_smoke.py              # every phase, on one card
     python3 chip_smoke.py --cards 4    # phase [9] only, over four cards
+    (``--pg-worker DIR`` is one rank of phase [9]'s process group, started
+    by ``parallel.multihost.spawn``)
 
 Builds the port's CUDA kernels from ``openglgaussiansplattingrenderer_tpu_torch/
 csrc`` (nvcc, at first use), then:
@@ -100,7 +102,9 @@ csrc`` (nvcc, at first use), then:
    ``/key`` (the served camera equal to ``apply_key`` on the host), 30
    ``/stream`` frames, ``/frame`` at the moved pose equal to
    ``render_camera_u8``, ``/stats``; then ``scripts/
-   torch_viewer_fps_bench.py`` at its default and at the flagship;
+   torch_viewer_fps_bench.py`` at its default and at the flagship; and the
+   numpy golden's gate frame held to the oracle at
+   ``depth_key="reference"`` within ``GOLDEN_TOL``;
 9. the multi-device layer on four logical shards of the one card: the
    fast sharded frame (both flagships padded to 3,616,104 rows) within
    1e-5 of the single-device frame at ``exch_factor`` 4 with no overflow,
@@ -109,7 +113,17 @@ csrc`` (nvcc, at first use), then:
    ``train_step_fast_sharded``, the oracle ``render_sharded`` on the gate
    scene launching no kernel, a data-parallel step of four orbit views
    against the mean of four single-view gradients and an 8-step
-   ``fit_scene_dp`` with one densify; times and peak memory;
+   ``fit_scene_dp`` with one densify; a 2 x 2 (view x splat) step of two
+   of those views against two single-view steps (loss, gradients and
+   densify statistic within ``GRAD_REL_TOL``, no overflow), an 8-step
+   ``fit_scene_2d`` with one densify against the same fit on 1 x 1; the
+   process-group backend (``parallel/multihost.py``): the flagship frame
+   and one step on two gloo ranks of the card (four NCCL ranks under
+   ``--cards 4``), the frame bit-equal to the single-controller frame and
+   the gradients within ``GRAD_REL_TOL``; the training CLI's
+   ``--mesh2d`` and ``--data-parallel`` routes; ``dryrun_multichip(8)``;
+   the scaling report (``scripts/torch_scaling_report.py``); times and
+   peak memory;
 7. prints a JSON line of phase [3a]'s numbers, one of phases [8] and [9],
    a JSON line of per-kernel results and, last, the device line.
 
@@ -119,6 +133,8 @@ is printed. There is no fallback: without CUDA the script exits 1.
 
 from __future__ import annotations
 
+import contextlib
+import io
 import json
 import os
 import statistics
@@ -156,6 +172,7 @@ Q16_FLAG_TOL, Q16_SMALL_TOL = 1e-2, 2e-3
 ATTRIBUTED_DIFF, ATTRIBUTED_PX = 4.5e-3, 6
 ORACLE_FLAG_TOL, ORACLE_FLAG_PX_SHARE = 1e-2, 1e-4
 DEPTH_TOL, DEPTH_ALPHA_TOL = 1e-4, 1e-5   # the CPU suite's render_depth limits
+GOLDEN_TOL = 4e-3                  # the north star's golden contract (ROADMAP.md)
 BUCKET_C, BUCKET_K = 6 * 1024 * 1024, 32   # the bucketing probe's own size
 # a size at which the device and not the host's dispatch sets a small
 # kernel's time: 256 MB in, 256 MB out for the prefix sum
@@ -180,6 +197,14 @@ CLI_ROUTES = ("default", "q16", "depth", "orbit", "golden")
 # pick).
 MESH_SHARDS = 4
 DP_BATCH, DP_STEPS, DP_DENSIFY_AT, DP_DENSIFY_THRESHOLD = 4, 8, 4, 5e-5
+# the 2-D (view x splat) mesh of phase [9]: two views by two splat shards
+M2_DV, M2_DS = 2, 2
+M2_FIT_HEADROOM = 1.25             # record capacity of the 2-D fits over the frame's
+# the process-group ranks of phase [9] on one card (gloo), the launcher's
+# limit on the ranks' lives and each rank's limit on a collective's wait;
+# the dry run's logical shards
+PG_RANKS_ONE_CARD, PG_TIMEOUT_S, PG_INIT_TIMEOUT_S = 2, 600.0, 300.0
+DRYRUN_SHARDS = 8
 
 # The card's published peaks (NVIDIA H100 SXM data sheet): device memory
 # rate and float32 rate outside the tensor cores (a multiply-add counts 2).
@@ -1805,12 +1830,25 @@ def check_viewer(flag_ply, gate_scene, dev):
                              a["tan_fovx"], a["tan_fovy"], a["vp"], save_path=None)
         assert same_png(path, gold), "the golden route's PNG is not the golden frame"
         gold_vs_card = float(np.abs(gold - gs.render_camera(gcam)).max())
+        # the golden sorts on the reference's float key (tile + ndc_z); the
+        # oracle on that key is held to it by the golden contract, so the
+        # gap to the card's pair-key frame is the key's alone
+        oref = Frame(gate_scene, gcam, dataclasses.replace(
+            cli_cfg(GATE_W, GATE_H), use_pallas=False, depth_key="reference",
+            max_per_tile=2048), dev)
+        with torch.no_grad():
+            img_ref, st_ref = oref.render()
+        assert int(st_ref["dropped_by_cap"]) == 0
+        gold_vs_ref = float(np.abs(gold - img_ref.cpu().numpy()).max())
+        assert gold_vs_ref <= GOLDEN_TOL, (
+            f"golden vs the oracle at depth_key='reference': {gold_vs_ref}")
         log(f"[8] CLI routes: every PNG equal to the frame rendered here; q16 vs the "
             f"packed f32 frame max abs {q16_err:.4e} (limit {Q16_FLAG_TOL}); packed vs "
             f"pair (the default) {packed_err:.4e}; golden 10k frame vs the card's "
-            f"kernels {gold_vs_card:.4e}")
+            f"kernels {gold_vs_card:.4e}, vs the oracle at depth_key='reference' "
+            f"{gold_vs_ref:.4e} (limit {GOLDEN_TOL})")
         nums.update(cli_q16_vs_packed=q16_err, cli_packed_vs_pair=packed_err,
-                    golden_vs_card=gold_vs_card)
+                    golden_vs_card=gold_vs_card, golden_vs_oracle_reference=gold_vs_ref)
 
     # ---- the interactive viewer's server ----------------------------------
     srv = interactive.make_server(ref, ref_pose(), port=0)
@@ -1904,9 +1942,11 @@ def check_multi_device(scenes, gate, dev, mesh):
     from openglgaussiansplattingrenderer_tpu_torch import Camera, RenderConfig
     from openglgaussiansplattingrenderer_tpu_torch.parallel import data_parallel as dp
     from openglgaussiansplattingrenderer_tpu_torch.parallel import fast_sharded as fs
+    from openglgaussiansplattingrenderer_tpu_torch.parallel import mesh2d
     from openglgaussiansplattingrenderer_tpu_torch.parallel import sharded as sh
     from openglgaussiansplattingrenderer_tpu_torch.render import (
         autotune_capacity,
+        quantize_capacity,
         render_arrays,
     )
     from openglgaussiansplattingrenderer_tpu_torch.splats import inference_config
@@ -1916,6 +1956,7 @@ def check_multi_device(scenes, gate, dev, mesh):
         TrainConfig,
         camera_bundles,
         make_optimizer,
+        make_train_step,
         params_from_raw,
         raw_from_params,
     )
@@ -2196,7 +2237,448 @@ def check_multi_device(scenes, gate, dev, mesh):
         + " ".join(f"{h['loss']:.5f}" for h in hist) + "; alive "
         + " ".join(str(h["alive"]) for h in hist) + f"; launches {launches['dp']}; "
         f"peak {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+
+    # ---- the 2-D (view x splat) mesh: two orbit views, two splat shards -----
+    m2 = mesh2d.make_mesh2d(M2_DV, M2_DS, devices=list(mesh.devices[:M2_DV * M2_DS]))
+    cams2, bundles2, targets2 = cams[:M2_DV], bundles[:M2_DV], targets[:M2_DV]
+    raw2 = raw_from_params(sh.pad_scene_for_mesh(start, M2_DS))
+    keys2 = tuple(sorted(raw2))
+    step2 = mesh2d.make_2d_train_step(dcfg, tc, FLAG_W, FLAG_H, m2, batch=M2_DV,
+                                      param_keys=keys2, exch_factor=float(M2_DS),
+                                      with_grad_norms=True)
+    args2 = (torch.stack([torch.from_numpy(mesh2d.tile_target(t, FLAG_W, FLAG_H, dcfg)[0])
+                          for t in targets2]).to(dev),
+             torch.stack([b[0] for b in bundles2]), torch.stack([b[1] for b in bundles2]),
+             *(torch.tensor([float(b[j]) for b in bundles2]) for j in (2, 3, 4, 5)))
+    rs2 = mesh2d.shard_raw_2d(raw2, m2)
+    opt2 = step2.init(rs2)
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    sync_all()
+    t0 = time.perf_counter()
+    _, new_opt2, loss2d, psnr2d, over2d, gnorm2d, seen2d = step2(rs2, opt2, *args2)
+    sync_all()
+    m2_first_ms = (time.perf_counter() - t0) * 1e3
+    launches["mesh2d"] = read_launches()
+    m2_peak = torch.cuda.max_memory_allocated() / 2**30
+    wall = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        again = step2(rs2, opt2, *args2)
+        sync_all()
+        wall.append((time.perf_counter() - t0) * 1e3)
+    # the same step on the same inputs: bit for bit on one card; across
+    # cards autograd adds what reaches a tensor from other cards in the
+    # order it arrives
+    mu_first, mu_again = (mesh2d._gather_state_2d(o, dev)["mu"] for o in (new_opt2, again[1]))
+    repeat_apart = {k: float((mu_again[k] - mu_first[k]).abs().max()) for k in mu_first}
+    del again, mu_first, mu_again
+    with warnings.catch_warnings(record=True) as wl:
+        warnings.simplefilter("always")
+        ov2 = fs.warn_on_sharded_overflow({"overflow": over2d}, float(M2_DS), M2_DS)
+    assert ov2 == 0 and not wl, f"2-D step: overflow {ov2} at exch_factor {M2_DS}"
+    for k in ("cumsum", "expand", "segsum", "composite", "composite_bwd"):
+        assert launches["mesh2d"][k] > 0, f"{k} never launched by the 2-D step"
+    # against two single-view make_train_step steps: Adam's first moment
+    # after one step is (1 - b1) times the gradient it used
+    single = make_train_step(dcfg, tc, FLAG_W, FLAG_H, with_grad_norms=True,
+                             param_keys=keys2)
+    g_ref = {k: torch.zeros_like(v) for k, v in raw2.items()}
+    loss_ref, stat_ref, seen_ref = 0.0, None, None
+    for t, b in zip(targets2, bundles2):
+        st1, met = single(single.init(raw2), t, *b)
+        for k in keys2:
+            g_ref[k] += st1.opt_state["mu"][k] / 0.1 / M2_DV
+        loss_ref += float(met["loss"]) / M2_DV
+        stat = met["densify_grad_norm"]
+        stat_ref = stat if stat_ref is None else stat_ref + stat
+        hit = (stat > 0).float()
+        seen_ref = hit if seen_ref is None else seen_ref + hit
+        del st1
+    mu2 = mesh2d._gather_state_2d(new_opt2, dev)["mu"]
+    m2_share = {k: float((mu2[k] / 0.1 - g).abs().max()) / max(float(g.abs().max()), 1e-30)
+                for k, g in g_ref.items()}
+    stat_share = float((gnorm2d - stat_ref).abs().max()) / max(float(stat_ref.max()), 1e-30)
+    loss_share = abs(float(loss2d) - loss_ref) / loss_ref
+    assert max(m2_share.values()) <= GRAD_REL_TOL, f"2-D step gradient: {m2_share}"
+    assert loss_share <= GRAD_REL_TOL, f"2-D loss {float(loss2d)} vs {loss_ref}"
+    assert stat_share <= GRAD_REL_TOL, f"2-D densify statistic: {stat_share}"
+    assert torch.equal(seen2d, seen_ref), "2-D seen counts differ from the views'"
+    del g_ref, mu2, new_opt2, rs2, opt2, stat_ref, seen_ref
+    nums["mesh2d_step"] = dict(
+        mesh=f"{M2_DV}x{M2_DS}", devices=[str(d) for d in m2.devices[0] + m2.devices[1]],
+        rows=raw2["means"].shape[0], ms=statistics.median(wall), first_ms=m2_first_ms,
+        peak_gib=m2_peak, loss=float(loss2d), loss_ref=loss_ref, psnr=float(psnr2d),
+        overflow=ov2, worst_share=m2_share, stat_share=stat_share,
+        repeat_mu_apart=repeat_apart)
+    log(f"[9] 2-D step on {m2!r}, {M2_DV} orbit views, {raw2['means'].shape[0]} rows, "
+        f"exch_factor {M2_DS}: {statistics.median(wall):.1f} ms (host clock, median of 3; "
+        f"first call {m2_first_ms:.1f} ms); peak {m2_peak:.2f} GiB; overflow 0, no "
+        f"warning; loss {float(loss2d):.6f} vs the views' mean {loss_ref:.6f}; gradient "
+        "(Adam's mu / 0.1) vs the mean of two make_train_step gradients, max abs / max "
+        "|g|: " + ", ".join(f"{k} {v:.3e}" for k, v in m2_share.items())
+        + f"; densify statistic vs the sum of the views' {stat_share:.3e} (limit "
+        f"{GRAD_REL_TOL}); the step again on the same inputs, Adam's first moment apart "
+        f"by {repeat_apart}; launches {launches['mesh2d']}")
+
+    # fit_scene_2d with one densify, against the same fit on a (1, 1) mesh.
+    # capacity_records bounds each splat shard's records, so the one shard
+    # of the 1x1 mesh has half the room of two: the fits take headroom for
+    # the records the densify adds, and neither may drop one. Two shards
+    # sum in another order than one (and across cards autograd adds what
+    # arrives from other cards in arrival order), and Adam normalises every
+    # element, so an element whose gradient nearly cancels moves by its
+    # rounding's share of a step: the steps before the densify are held by
+    # Adam's first moment, linear in the gradients, at GRAD_REL_TOL of each
+    # tensor's largest (the parameters' elements outside rtol 2e-4 / atol
+    # 1e-6 are counted). Density control's decisions are discontinuous: the
+    # fits densify every splat the views' gradients reach (threshold 0), a
+    # set no rounding changes, and hold the alive masks equal and the
+    # losses within GRAD_REL_TOL; the rank order of near-equal candidates,
+    # which decides their slots and split draws, is counted, not held
+    fcfg = dataclasses.replace(dcfg, capacity_records=quantize_capacity(
+        dcfg.capacity_records, M2_FIT_HEADROOM))
+    dc_fit = dataclasses.replace(dc, grad_threshold=0.0)
+    x0, _ = dn.pad_to_capacity(raw_from_params(start), dc_fit.capacity)
+    steps_before, m11 = {}, mesh2d.make_mesh2d(1, 1, devices=[dev])
+    for name, mm in (("2d", m2), ("1x1", m11)):
+        stp = mesh2d.make_2d_train_step(fcfg, tc, FLAG_W, FLAG_H, mm, batch=M2_DV,
+                                        param_keys=keys2, with_grad_norms=True)
+        rs = mesh2d.shard_raw_2d(x0, mm)
+        st = stp.init(rs)
+        for _ in range(DP_DENSIFY_AT):
+            rs, st, *_ = stp(rs, st, *args2)
+        steps_before[name] = (mesh2d.gather_raw_2d(rs, dev),
+                              mesh2d._gather_state_2d(st, dev)["mu"])
+        del rs, st
+    (b2, mu_2), (b1, mu_1) = steps_before["2d"], steps_before["1x1"]
+    mu_share = {k: float((mu_2[k] - mu_1[k]).abs().max()) / max(float(mu_1[k].abs().max()),
+                                                                1e-30) for k in mu_1}
+    off = {k: int((~torch.isclose(b2[k], b1[k], rtol=2e-4, atol=1e-6)).sum()) for k in b1}
+    assert max(mu_share.values()) <= GRAD_REL_TOL, (
+        f"2-D steps vs 1x1 steps, Adam's first moment: {mu_share}")
+    del steps_before, b2, b1, mu_2, mu_1, x0, args2
+    fits = {}
+    for name, mm in (("2d", m2), ("1x1", m11)):
+        if name == "2d":
+            reset_launches()
+        sync_all()
+        t0 = time.perf_counter()
+        fits[name] = mesh2d.fit_scene_2d(
+            start, targets2, cams2, fcfg, TrainConfig(steps=DP_STEPS, lambda_dssim=0.2),
+            mesh=mm, batch=M2_DV, dc=dc_fit, log_every=1, verbose=False)
+        sync_all()
+        fits[name] += (time.perf_counter() - t0,)
+        if name == "2d":
+            launches["mesh2d_fit"] = read_launches()
+    (p2, alive2, hist2, s2), (p1, alive1, hist1, s1) = fits["2d"], fits["1x1"]
+    assert all(np.isfinite(h["loss"]) for h in hist2 + hist1), (hist2, hist1)
+    assert int(alive2.sum()) == hist2[-1]["alive"]
+    assert all(h["overflow"] == 0 for h in hist2 + hist1), (hist2, hist1)
+    for k in ("cumsum", "expand", "segsum", "composite", "composite_bwd"):
+        assert launches["mesh2d_fit"][k] > 0, f"{k} never launched by fit_scene_2d"
+    assert torch.equal(alive2, alive1), "2-D fit: alive mask differs from the 1x1 fit's"
+    loss_apart = max(abs(h2["loss"] - h1["loss"]) / h1["loss"] for h2, h1 in zip(hist2, hist1))
+    assert loss_apart <= GRAD_REL_TOL, f"2-D fit loss vs 1x1: {hist2} {hist1}"
+    n_new = int(alive2.sum()) - start["means"].shape[0]
+    apart_end = int((~torch.stack([torch.isclose(p2[k], p1[k], rtol=2e-4, atol=1e-6).reshape(
+        p1[k].shape[0], -1).all(dim=1) for k in p1]).all(dim=0)).sum())
+    del fits, p2, p1
+    nums["fit_scene_2d"] = dict(
+        seconds=s2, seconds_1x1=s1, losses=[h["loss"] for h in hist2],
+        losses_1x1=[h["loss"] for h in hist1], alive=[h["alive"] for h in hist2],
+        mu_share_before_densify=mu_share, elements_outside_rtol_before_densify=off,
+        loss_apart=loss_apart, rows_added=n_new, rows_apart_at_end=apart_end,
+        peak_gib=torch.cuda.max_memory_allocated() / 2**30)
+    log(f"[9] fit_scene_2d, {DP_STEPS} steps of batch {M2_DV} on {M2_DV}x{M2_DS}, one "
+        f"densify at step {DP_DENSIFY_AT} of every splat with a gradient: {s2:.1f} s (1x1: "
+        f"{s1:.1f} s); loss " + " ".join(f"{h['loss']:.5f}" for h in hist2) + "; alive "
+        + " ".join(str(h["alive"]) for h in hist2) + f"; vs 1x1: Adam's first moment after "
+        f"{DP_DENSIFY_AT} steps, of each tensor's largest: " + ", ".join(
+            f"{k} {v:.3e}" for k, v in mu_share.items()) + f" (limit {GRAD_REL_TOL}; the "
+        f"parameters' elements outside rtol 2e-4 / atol 1e-6: {off}); the fits' alive masks "
+        f"equal, losses within {loss_apart:.3e} relative (limit {GRAD_REL_TOL}); rows apart "
+        f"after the last step {apart_end} ({n_new} rows added); launches "
+        f"{launches['mesh2d_fit']}")
+
+    # ---- the process-group backend: the same frame and step across ranks ----
+    del raw2, targets, bundles
+    pg_launches, nums["process_group"] = check_process_group(f, start, target, dev,
+                                                             len(set(mesh.devices)))
+    launches.update(pg_launches)
     return launches, nums
+
+
+def check_process_group(f, start, target, dev, cards):
+    """Phase [9], the process-group backend (``parallel/multihost.py``): the
+    uniform flagship (colours perturbed as in the gradient check) split
+    over ranks launched by ``multihost.spawn``, each rank a process
+    holding only its rows: on one card two gloo ranks on ``cuda:0`` (NCCL
+    refuses two ranks on one device; gloo stages through the host), over
+    N cards N NCCL ranks, one card each. The frame must be bit-equal to
+    the single-controller frame of as many shards, the gs-loss gradients
+    of each rank's rows within ``GRAD_REL_TOL`` of the controller's, and
+    one ``train_step_fast_sharded`` must give the gradient run's loss.
+    Returns (launches summed over ranks: the frame, the step; numbers)."""
+    import numpy as np
+    import torch
+
+    from openglgaussiansplattingrenderer_tpu_torch.parallel import fast_sharded as fs
+    from openglgaussiansplattingrenderer_tpu_torch.parallel import multihost
+    from openglgaussiansplattingrenderer_tpu_torch.parallel import sharded as sh
+    from openglgaussiansplattingrenderer_tpu_torch.train import losses
+    from openglgaussiansplattingrenderer_tpu_torch.train.trainer import (
+        params_from_raw,
+        raw_from_params,
+    )
+
+    world = cards if cards > 1 else PG_RANKS_ONE_CARD
+    backend = "nccl" if cards > 1 else "gloo"
+    padded = sh.pad_scene_for_mesh(start, world)
+    rows = padded["means"].shape[0]
+    mesh = sh.make_mesh(world) if cards > 1 else sh.make_mesh(devices=[dev] * world)
+    exch = float(world)
+    with torch.no_grad():
+        ref_img, ref_st = fs.render_fast_sharded(padded, *f.args, f.cfg, mesh, exch_factor=exch)
+        ref_img = ref_img.cpu()
+    assert int(ref_st["overflow"]) == 0
+    leaves = {k: v.detach().requires_grad_(True) for k, v in raw_from_params(padded).items()}
+    img, _ = fs.render_fast_sharded(params_from_raw(leaves), *f.args, f.cfg, mesh,
+                                    exch_factor=exch)
+    loss = losses.gs_loss(img[..., :3], target, 0.2)
+    ref_g = dict(zip(leaves, torch.autograd.grad(loss, list(leaves.values()))))
+    ref_loss = float(loss.detach())
+    del img, loss, leaves
+    torch.cuda.empty_cache()
+
+    with tempfile.TemporaryDirectory() as tmp:
+        for k, v in padded.items():
+            np.save(os.path.join(tmp, f"p_{k}.npy"), v.cpu().numpy())
+        np.save(os.path.join(tmp, "target.npy"), target.cpu().numpy())
+        for name, m in zip(("view", "vp"), f.args[:2]):
+            np.save(os.path.join(tmp, f"{name}.npy"), m.cpu().numpy())
+        # the ranks need the card's index: torch.device("cuda") has none
+        one_card = (torch.device("cuda", torch.cuda.current_device())
+                    if dev.type == "cuda" and dev.index is None else dev)
+        spec = dict(backend=backend, device=None if cards > 1 else str(one_card), rows=rows,
+                    capacity=f.cfg.capacity_records, exch=exch,
+                    cam=[float(x) for x in f.args[2:6]], keys=sorted(padded))
+        with open(os.path.join(tmp, "spec.json"), "w") as fh:
+            json.dump(spec, fh)
+        t0 = time.perf_counter()
+        results = multihost.spawn([sys.executable, os.path.abspath(__file__), "--pg-worker",
+                                   tmp], world, timeout_s=PG_TIMEOUT_S)
+        wall_s = time.perf_counter() - t0
+        for rank, (rc, out) in enumerate(results):
+            for line in out.strip().splitlines()[-6:]:
+                log(f"[9] pg rank {rank}: {line}")
+            assert rc == 0, f"process-group rank {rank} exited {rc}"
+        reports = []
+        for rank in range(world):
+            with open(os.path.join(tmp, f"report{rank}.json")) as fh:
+                reports.append(json.load(fh))
+        pg_img = torch.from_numpy(np.load(os.path.join(tmp, "img.npy")))
+        diff = float((pg_img - ref_img).abs().max())
+        assert torch.equal(pg_img, ref_img), (
+            f"{world} {backend} ranks: frame {diff} from the single-controller frame")
+        m = rows // world
+        share = {k: 0.0 for k in ref_g}
+        for rank in range(world):
+            got = np.load(os.path.join(tmp, f"grads{rank}.npz"))
+            for k, g in ref_g.items():
+                want = g[rank * m:(rank + 1) * m].cpu().numpy()
+                scale = max(float(g.abs().max()), 1e-30)
+                share[k] = max(share[k], float(np.abs(got[k] - want).max()) / scale)
+    assert max(share.values()) <= GRAD_REL_TOL, f"process-group gradients: {share}"
+    for r in reports:
+        assert abs(r["loss"] - ref_loss) <= 1e-6 * max(ref_loss, 1.0), (r["loss"], ref_loss)
+        assert r["step_loss"] == r["loss"] and r["overflow"] == 0, r
+    launches = {"pg_frame": {k: sum(r["frame_launches"][k] for r in reports)
+                             for k in reports[0]["frame_launches"]},
+                "pg_step": {k: sum(r["step_launches"][k] for r in reports)
+                            for k in reports[0]["step_launches"]}}
+    for k in ("cumsum", "expand", "composite"):
+        assert launches["pg_frame"][k] > 0, f"{k} never launched by the process-group frame"
+    for k in ("cumsum", "expand", "segsum", "composite", "composite_bwd"):
+        assert launches["pg_step"][k] > 0, f"{k} never launched by the process-group step"
+    nums = dict(ranks=world, backend=backend, rows=rows, bit_equal=True, worst_share=share,
+                spawn_wall_s=wall_s,
+                per_rank=[{k: r[k] for k in ("device", "frame_ms", "staging_frame_s",
+                                             "step_ms", "staging_step_s", "peak_gib")}
+                          for r in reports])
+    log(f"[9] process group, {world} {backend} ranks ({', '.join(r['device'] for r in reports)}"
+        f"): frame bit-equal to the single-controller {world}-shard frame; frame ms by "
+        "rank " + "; ".join(f"{r['frame_ms']}" for r in reports) + " (host clock, 3 "
+        "runs); host staging of one frame's collectives " + ", ".join(
+            f"{r['staging_frame_s'] * 1e3:.1f}" for r in reports) + " ms; gradients vs "
+        "the controller's, max abs / max |g|: " + ", ".join(
+            f"{k} {v:.3e}" for k, v in share.items()) + f" (limit {GRAD_REL_TOL}); step "
+        "ms by rank " + ", ".join(f"{r['step_ms']:.1f}" for r in reports) + "; launches "
+        f"{launches}; the ranks took {wall_s:.1f} s from spawn to exit")
+    return launches, nums
+
+
+def pg_worker(tmp):
+    """One rank of ``check_process_group`` (``chip_smoke.py --pg-worker
+    DIR``, with torchrun's environment from ``multihost.spawn``): joins
+    the group, loads its rows of the scene the launcher saved, renders the
+    frame (counts reset before, read after; then three timed frames),
+    takes the gs-loss gradients of its rows, runs one
+    ``train_step_fast_sharded``, and writes its report (rank 0 also the
+    frame)."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from openglgaussiansplattingrenderer_tpu_torch import RenderConfig
+    from openglgaussiansplattingrenderer_tpu_torch.ops.kernels import build
+    from openglgaussiansplattingrenderer_tpu_torch.parallel import fast_sharded as fs
+    from openglgaussiansplattingrenderer_tpu_torch.parallel import multihost
+    from openglgaussiansplattingrenderer_tpu_torch.train import losses
+    from openglgaussiansplattingrenderer_tpu_torch.train.trainer import (
+        TrainConfig,
+        make_optimizer,
+        params_from_raw,
+        raw_from_params,
+    )
+
+    with open(os.path.join(tmp, "spec.json")) as fh:
+        spec = json.load(fh)
+    # the rank's card is current before it joins: NCCL binds to it
+    device = torch.device(spec["device"] or f"cuda:{multihost.local_rank()}")
+    torch.cuda.set_device(device)
+    multihost.initialize(backend=spec["backend"], timeout_s=PG_INIT_TIMEOUT_S)
+    rank, world = multihost.process_index(), multihost.process_count()
+    build.load_library()
+    mesh = multihost.global_mesh(device)
+    m = spec["rows"] // world
+    local = [{k: torch.from_numpy(np.load(os.path.join(tmp, f"p_{k}.npy"), mmap_mode="r")
+                                  [rank * m:(rank + 1) * m].copy()).to(device)
+              for k in spec["keys"]}]
+    cfg = dataclasses.replace(RenderConfig.for_resolution(FLAG_W, FLAG_H, tile_px=32,
+                                                          chunk=256),
+                              capacity_records=spec["capacity"])
+    args = (*(torch.from_numpy(np.load(os.path.join(tmp, f"{n}.npy"))).to(device)
+              for n in ("view", "vp")), *spec["cam"])
+    target = torch.from_numpy(np.load(os.path.join(tmp, "target.npy"))).to(device)
+
+    def frame(params):
+        return fs.render_fast_sharded(params, *args, FLAG_W, FLAG_H, cfg, mesh,
+                                      exch_factor=spec["exch"])
+
+    def synced_ms(fn):
+        torch.cuda.synchronize(device)
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize(device)
+        return out, (time.perf_counter() - t0) * 1e3
+
+    with torch.no_grad():
+        frame(local)
+        torch.cuda.reset_peak_memory_stats(device)
+        reset_launches()
+        mesh.staging_s = 0.0
+        (img, st), _ = synced_ms(lambda: frame(local))
+        frame_launches, staging_frame = read_launches(), mesh.staging_s
+        frame_ms = [round(synced_ms(lambda: frame(local))[1], 3) for _ in range(3)]
+    raw = {k: v.detach().requires_grad_(True) for k, v in raw_from_params(local[0]).items()}
+    img_g, _ = frame([params_from_raw(raw)])
+    loss = losses.gs_loss(img_g[..., :3], target, 0.2)
+    grads = torch.autograd.grad(loss, list(raw.values()))
+    np.savez(os.path.join(tmp, f"grads{rank}.npz"),
+             **{k: g.cpu().numpy() for k, g in zip(raw, grads)})
+    del img_g, grads
+    optimizer = make_optimizer(TrainConfig(lambda_dssim=0.2))
+    raw0 = [raw_from_params(local[0])]
+    reset_launches()
+    mesh.staging_s = 0.0
+    (new_raw, _, step_loss, st2), step_ms = synced_ms(lambda: fs.train_step_fast_sharded(
+        raw0, [optimizer.init(raw0[0])], target, *args, width=FLAG_W, height=FLAG_H, cfg=cfg,
+        mesh=mesh, optimizer=optimizer, exch_factor=spec["exch"]))
+    step_launches, staging_step = read_launches(), mesh.staging_s
+    assert all(bool(torch.isfinite(v).all()) for v in new_raw[0].values())
+    report = dict(rank=rank, device=str(device), backend=mesh.backend, frame_ms=frame_ms,
+                  staging_frame_s=staging_frame, step_ms=step_ms, staging_step_s=staging_step,
+                  frame_launches=frame_launches, step_launches=step_launches,
+                  loss=float(loss.detach()), step_loss=float(step_loss),
+                  overflow=int(st["overflow"]) + int(st2["overflow"]),
+                  peak_gib=torch.cuda.max_memory_allocated(device) / 2**30)
+    if rank == 0:
+        np.save(os.path.join(tmp, "img.npy"), img.cpu().numpy())
+    with open(os.path.join(tmp, f"report{rank}.json"), "w") as fh:
+        json.dump(report, fh)
+    print(f"rank {rank} on {device} ({mesh.backend}): frame {frame_ms} ms, step "
+          f"{step_ms:.1f} ms", flush=True)
+    multihost.shutdown()
+
+
+def check_parallel_cli(dev, cards):
+    """Phase [9], the training CLI's parallel routes in-process on a
+    2,000-splat scene at 256x256 (4 views, 4 steps, ``--densify``): on one
+    card ``--mesh2d 1x1`` and ``--data-parallel 1``, over four cards
+    ``--mesh2d 2x2`` and ``--data-parallel 4``. Each must exit 0 and write
+    its PLY, PNG and history with a finite PSNR. Returns numbers by route."""
+    import numpy as np
+
+    from openglgaussiansplattingrenderer_tpu_torch.io import ply as ply_io
+
+    cli = load_script("torch_train_cli")
+    routes = ((["--mesh2d", "2x2"], ["--data-parallel", "4"]) if cards >= 4
+              else (["--mesh2d", "1x1"], ["--data-parallel", "1"]))
+    nums = {}
+    with tempfile.TemporaryDirectory() as d:
+        sc = ply_io.make_synthetic_scene(2000, seed=5, extent=1.5)
+        scene = os.path.join(d, "scene.ply")
+        ply_io.save_ply(scene, sc["means"], sc["quats"], sc["scales"], sc["opacities"],
+                        sc["colors"])
+        for flag in routes:
+            tag = "".join(flag).replace("--", "")
+            outs = [os.path.join(d, f"{tag}.{e}") for e in ("ply", "png", "json")]
+            t0 = time.perf_counter()
+            rc = cli.main([scene, "-o", outs[0], "--out-png", outs[1], "--history", outs[2],
+                           "--width", "256", "--height", "256", "--views", "4",
+                           "--steps", "4", "--densify", "--densify-start", "1",
+                           "--densify-interval", "2", "--log-every", "1", *flag])
+            secs = time.perf_counter() - t0
+            assert rc == 0, f"training CLI {' '.join(flag)} exited {rc}"
+            assert all(os.path.exists(o) for o in outs), outs
+            with open(outs[2]) as fh:
+                hist = json.load(fh)
+            assert np.isfinite(hist["final_psnr_view0"]), hist
+            nums[" ".join(flag)] = dict(seconds=secs, psnr=hist["final_psnr_view0"],
+                                        splats=hist["splats"])
+    log("[9] training CLI, parallel routes: " + "; ".join(
+        f"{k}: exit 0, {v['splats']} splats, view-0 PSNR {v['psnr']:.2f} dB, "
+        f"{v['seconds']:.1f} s" for k, v in nums.items()))
+    return nums
+
+
+def check_dryrun_and_scaling(cards):
+    """Phase [9], last: ``dryrun_multichip(8)`` on the card(s), and the
+    scaling report (``scripts/torch_scaling_report.py``) with its flagship
+    table. Returns their numbers."""
+    from openglgaussiansplattingrenderer_tpu_torch.dryrun import dryrun_multichip
+
+    t0 = time.perf_counter()
+    dry = dryrun_multichip(DRYRUN_SHARDS)
+    dry["seconds"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):      # its JSON line: kept below
+        rep = load_script("torch_scaling_report").main(["--json"])
+    rep["seconds"] = time.perf_counter() - t0
+    log(f"[9] dryrun_multichip({DRYRUN_SHARDS}) on {sorted(set(dry['devices']))}: ok in "
+        f"{dry['seconds']:.1f} s; scaling report in {rep['seconds']:.1f} s, link "
+        f"{rep['link']['gbps']:.1f} GB/s ({rep['link']['source']}); cross-check "
+        f"{rep['scene']['cross_check']}")
+    for r in rep["flagship"]["table"]:
+        log(f"[9] scaling, flagship on {r['devices']} shards: max owner records "
+            f"{r['max_owner_records']}, pair work max/mean {r['pairs_imbalance']:.3f}, "
+            f"efficiency bound {r['efficiency_bound']:.1%}, exchange "
+            f"{r['exchange_bytes'] / 1e6:.1f} MB in {r['exchange_ms']:.3f} ms, bound "
+            f"{r['bound_frame_ms']} ms ({r['bound_fps']} fps), measured "
+            f"{r['measured_frame_ms']} ms on {r['measured_on']}")
+    return dry, rep
 
 
 def main(argv=None) -> int:
@@ -2206,6 +2688,7 @@ def main(argv=None) -> int:
     ap.add_argument("--cards", type=int, default=0, metavar="N",
                     help="run only phase [9], over N distinct CUDA cards "
                     "(make_mesh(N)); by default every phase runs on one card")
+    ap.add_argument("--pg-worker", metavar="DIR", help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     import numpy as np  # noqa: F401  (the port needs it; fail early)
     import torch
@@ -2213,6 +2696,9 @@ def main(argv=None) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
         return 1
+    if args.pg_worker:
+        pg_worker(args.pg_worker)
+        return 0
     import dataclasses
 
     from openglgaussiansplattingrenderer_tpu_torch import Camera, RenderConfig
@@ -2269,6 +2755,9 @@ def main(argv=None) -> int:
         del frames
         mesh_launches, mesh_nums = check_multi_device(scenes, gate, dev,
                                                       sh.make_mesh(args.cards))
+        mesh_nums["cli"] = check_parallel_cli(dev, args.cards)
+        mesh_nums["dryrun"], mesh_nums["scaling"] = check_dryrun_and_scaling(args.cards)
+        log(f"[7] card and power limit, again beside the results: {card}")
         log(json.dumps({"multi_device": mesh_nums, "launches": mesh_launches}))
         log(json.dumps({"ok": True, "device": {
             "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -2394,6 +2883,8 @@ def main(argv=None) -> int:
     mesh_launches, mesh_nums = check_multi_device(
         scenes, gate, dev, sh.make_mesh(devices=["cuda:0"] * MESH_SHARDS))
     del scenes
+    mesh_nums["cli"] = check_parallel_cli(dev, 1)
+    mesh_nums["dryrun"], mesh_nums["scaling"] = check_dryrun_and_scaling(1)
     log(f"[9] the phase took {time.perf_counter() - t0:.1f} s")
 
     # ---- 2, continued: the probe kernels (3.2 GB written a launch, and a
@@ -2426,6 +2917,10 @@ def main(argv=None) -> int:
                      "sharded_launches": mesh_launches["sharded"][name],
                      "sharded_train_launches": mesh_launches["sharded_train"][name],
                      "dp_launches": mesh_launches["dp"][name],
+                     "mesh2d_launches": mesh_launches["mesh2d"][name],
+                     "mesh2d_fit_launches": mesh_launches["mesh2d_fit"][name],
+                     "pg_frame_launches": mesh_launches["pg_frame"][name],
+                     "pg_step_launches": mesh_launches["pg_step"][name],
                      **results[name]})
     log(f"[7] card and power limit, again beside the results: {card}")
     log(json.dumps({"oracle": oracle}))

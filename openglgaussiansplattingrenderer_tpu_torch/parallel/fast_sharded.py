@@ -34,6 +34,17 @@ on the port's single-controller mesh (``parallel/sharded.py``):
 With the records of contiguous splat shards merged stably in shard order,
 a tile's records reach the compositor in the single-device frame's order,
 so a frame with no drops is the single-device frame.
+
+The frame is four stages, each a function of this module:
+``shard_records`` (one shard's table, expansion and bucket layout), the
+exchange (``mesh.all_to_all``), ``merge_records`` + ``owner_tiles`` (one
+owner's merge and composite, its ``(T / D, P, 4)`` tiles) and
+``assemble`` (the image).
+``render_tiles`` runs the first three over the mesh's local shards and
+``render_fast_sharded`` adds the fourth; ``parallel/mesh2d.py`` scores the
+owned tiles without assembling. Every collective is a method of the mesh,
+so the single-controller mesh (every shard) and ``parallel.multihost``'s
+process mesh (its rank's shard) run the same stage code.
 """
 
 from __future__ import annotations
@@ -53,9 +64,7 @@ from openglgaussiansplattingrenderer_tpu_torch.ops.kernels import records as kr
 from openglgaussiansplattingrenderer_tpu_torch.ops.kernels import scan as ks
 from openglgaussiansplattingrenderer_tpu_torch.parallel.sharded import (
     Mesh,
-    all_to_all,
     check_tiles,
-    local_shards,
     make_mesh,
     matrix_on,
     on_device,
@@ -64,8 +73,8 @@ from openglgaussiansplattingrenderer_tpu_torch.parallel.sharded import (
     step_sharded,
 )
 
-__all__ = ["render_fast_sharded", "train_step_fast_sharded", "make_mesh",
-           "pad_scene_for_mesh", "shard_params", "exchange_capacity",
+__all__ = ["render_fast_sharded", "render_tiles", "train_step_fast_sharded",
+           "make_mesh", "pad_scene_for_mesh", "shard_params", "exchange_capacity",
            "warn_on_sharded_overflow"]
 
 NUM_COLS = kr.NUM_FIELDS + 2       # the 9 fields, tile, depth
@@ -149,8 +158,8 @@ class Q16Route(torch.autograd.Function):
     def forward(ctx, mesh, rows, num_tiles, tpd, wp, hp, *flat):
         ndev = mesh.size
         packed = []
-        for d, dev in enumerate(mesh.devices):
-            fields9, tile, depth, rkey, pkey = flat[5 * d:5 * d + 5]
+        for i, (_, dev) in enumerate(mesh.local):
+            fields9, tile, depth, rkey, pkey = flat[5 * i:5 * i + 5]
             with on_device(dev):
                 words = kr.q16_pack(fields9, wp, hp).view(torch.float32)
                 cols = torch.cat([words, tile.to(torch.float32)[None], depth[None]])
@@ -158,7 +167,7 @@ class Q16Route(torch.autograd.Function):
                 pad[5] = num_tiles
                 packed.append(_pack(cols, pad, rkey, pkey, rows))
         out = []
-        for d, (dev, recv) in enumerate(zip(mesh.devices, all_to_all(packed, mesh))):
+        for (_, dev), recv in zip(mesh.local, mesh.all_to_all(packed)):
             with on_device(dev):
                 lt = _local_tile(recv[:, 5].to(torch.int32), ndev, num_tiles, tpd)
                 sk, si = torch.sort(kr.packed_key(lt, recv[:, 6]), stable=True)
@@ -176,86 +185,131 @@ class Q16Route(torch.autograd.Function):
             "with sort_payload='f32'.")
 
 
-def render_fast_sharded(params, view, vp, focal_x, focal_y, tan_fovx,
-                        tan_fovy, width: int, height: int, cfg: RenderConfig,
-                        mesh: Mesh, exch_factor: float = 2.0
-                        ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-    """Multi-device fast render. Returns ((H, W, 4) image, stats), both on
-    ``mesh.devices[0]``.
+def shard_records(p, dev, view, vp, focal_x, focal_y, tan_fovx, tan_fovy,
+                  width: int, height: int, cfg: RenderConfig, ndev: int,
+                  cap_exch: int):
+    """Stage 1, one shard on ``dev``: the fast path's table, prefix sum
+    (kernel 1) and expansion (kernel 2) of its splats ``p``, then the
+    bucket layout by tile owner. Returns (buckets, info, records bound for
+    each owner (D,)): the buckets are the (D * cap_exch, 11) exchange rows,
+    or under q16 the tuple ``Q16Route`` packs."""
+    t = cfg.num_tiles
+    with on_device(dev):
+        rec_f, rec_t, rec_d, info = fastpath.expand_depth_records(
+            p, matrix_on(view, dev), matrix_on(vp, dev), focal_x, focal_y,
+            tan_fovx, tan_fovy, width, height, cfg)
+        rkey, pkey, cnt = _bucket_rows(rec_t, ndev, cap_exch, t)
+        if cfg.sort_payload == "q16":
+            return (rec_f, rec_t, rec_d, rkey, pkey), info, cnt
+        cols = torch.cat([rec_f, rec_t.to(torch.float32)[None], rec_d[None]])
+        pad = torch.zeros(NUM_COLS, device=dev)
+        pad[kr.NUM_FIELDS] = t            # the padding sorts after every tile
+        return _pack(cols, pad, rkey, pkey, ndev * cap_exch), info, cnt
 
-    ``params`` is a global dict (its row count divisible by the mesh size:
-    ``pad_scene_for_mesh``) or one dict per shard (``shard_params``).
-    ``exch_factor`` sizes the exchange buckets (``exchange_capacity``);
-    ``exch_factor=D`` guarantees zero drops at D times the exchange
-    memory. Stats (device tensors): ``overflow`` (records dropped by the
-    local capacity or the buckets), ``num_records``, ``exchanged_records``.
-    """
-    shards = local_shards(params, mesh)
+
+def merge_records(recv: torch.Tensor, dev, ndev: int, num_tiles: int, tpd: int):
+    """The owner's merge of its received rows: one stable (local tile,
+    depth) sort (``records.pair_key``). Returns (sorted fields (9, R),
+    bounds (tpd + 1,))."""
+    with on_device(dev):
+        lt = _local_tile(recv[:, kr.NUM_FIELDS].to(torch.int32), ndev, num_tiles, tpd)
+        sk, _, sf = kr.sort_with_payload(kr.pair_key(lt, recv[:, kr.NUM_FIELDS + 1]),
+                                         recv[:, :kr.NUM_FIELDS].t())
+        return sf, _merge_bounds(sk, tpd, 32)
+
+
+def owned_tiles(d: int, ndev: int, tpd: int, device) -> torch.Tensor:
+    """Global ids of the tiles owner d composites: ``d + D * arange(T / D)``."""
+    return d + ndev * torch.arange(tpd, dtype=torch.int32, device=device)
+
+
+def owner_tiles(sf, bounds, d: int, dev, ndev: int, tpd: int, width: int,
+                height: int, cfg: RenderConfig) -> torch.Tensor:
+    """Stage 3, owner d: kernel 4 over its round-robin tiles. Returns the
+    (tpd, P, 4) premultiplied rgb and final transmittance of tiles
+    ``owned_tiles(d, ...)``, in that order."""
+    with on_device(dev):
+        return fastpath.composite_sorted(
+            sf, bounds, num_tiles=tpd, tile_ids=owned_tiles(d, ndev, tpd, dev),
+            width=width, height=height, cfg=cfg)[0]
+
+
+def render_tiles(params, view, vp, focal_x, focal_y, tan_fovx, tan_fovy,
+                 width: int, height: int, cfg: RenderConfig, mesh: Mesh,
+                 exch_factor: float = 2.0):
+    """Stages 1-3 over the mesh's local shards. Returns (one (T / D, P, 4)
+    tensor of owned tiles per local shard, on its device, stats on
+    ``mesh.out_device``): see ``render_fast_sharded``."""
+    shards = mesh.local_shards(params)
     ndev, t = mesh.size, cfg.num_tiles
     tpd = check_tiles(cfg, mesh)
     cap_exch = exchange_capacity(cfg, shards[0]["means"].shape[0], ndev, exch_factor)
     rows = ndev * cap_exch
-    q16 = cfg.sort_payload == "q16"
 
-    # ---- each shard: table, prefix sum, expansion, bucket layout ----------
     local, infos, counts = [], [], []
-    for dev, p in zip(mesh.devices, shards):
-        with on_device(dev):
-            rec_f, rec_t, rec_d, info = fastpath.expand_depth_records(
-                p, matrix_on(view, dev), matrix_on(vp, dev), focal_x, focal_y,
-                tan_fovx, tan_fovy, width, height, cfg)
-            rkey, pkey, cnt = _bucket_rows(rec_t, ndev, cap_exch, t)
-            if q16:
-                local.append((rec_f, rec_t, rec_d, rkey, pkey))
-            else:
-                cols = torch.cat([rec_f, rec_t.to(torch.float32)[None], rec_d[None]])
-                pad = torch.zeros(NUM_COLS, device=dev)
-                pad[kr.NUM_FIELDS] = t        # the padding sorts after every tile
-                local.append(_pack(cols, pad, rkey, pkey, rows))
-            infos.append(info)
-            counts.append(cnt)
+    for (_, dev), p in zip(mesh.local, shards):
+        buckets, info, cnt = shard_records(p, dev, view, vp, focal_x, focal_y,
+                                           tan_fovx, tan_fovy, width, height, cfg,
+                                           ndev, cap_exch)
+        local.append(buckets)
+        infos.append(info)
+        counts.append(cnt)
 
-    # ---- the exchange and the owners' merges ------------------------------
-    if q16:
+    if cfg.sort_payload == "q16":
         wp, hp = padded_dims(width, height, cfg)
         flat = [x for shard in local for x in shard]
         merged = Q16Route.apply(mesh, rows, t, tpd, wp, hp, *flat)
         merged = list(zip(merged[0::2], merged[1::2]))
     else:
-        merged = []
-        for dev, recv in zip(mesh.devices, all_to_all(local, mesh)):
-            with on_device(dev):
-                lt = _local_tile(recv[:, kr.NUM_FIELDS].to(torch.int32), ndev, t, tpd)
-                sk, _, sf = kr.sort_with_payload(
-                    kr.pair_key(lt, recv[:, kr.NUM_FIELDS + 1]),
-                    recv[:, :kr.NUM_FIELDS].t())
-                merged.append((sf, _merge_bounds(sk, tpd, 32)))
+        # stage 2, the exchange: owner d receives bucket d of every shard
+        merged = [merge_records(recv, dev, ndev, t, tpd)
+                  for (_, dev), recv in zip(mesh.local, mesh.all_to_all(local))]
 
-    # ---- each owner composites its round-robin tiles ----------------------
-    tiled = []
-    for d, (dev, (sf, bounds)) in enumerate(zip(mesh.devices, merged)):
-        with on_device(dev):
-            mine = d + ndev * torch.arange(tpd, dtype=torch.int32, device=dev)
-            tiled.append(fastpath.composite_sorted(
-                sf, bounds, num_tiles=tpd, tile_ids=mine, width=width,
-                height=height, cfg=cfg)[0])
-
-    # stacked order is (owner d, local lt) -> global tile lt * D + d
-    out = mesh.devices[0]
-    g = torch.arange(t, device=out)
-    stacked = torch.cat([x.to(out) for x in tiled])
-    tiled = stacked[(g % ndev) * tpd + g // ndev]
-    image = assemble_image(tiled[:, :, 0:3], tiled[:, :, 3], width, height, cfg)
+    tiled = [owner_tiles(sf, bounds, d, dev, ndev, tpd, width, height, cfg)
+             for (d, dev), (sf, bounds) in zip(mesh.local, merged)]
 
     def total(xs):
-        return torch.stack([x.to(out) for x in xs]).sum()
+        on = [x.to(dev) for x, (_, dev) in zip(xs, mesh.local)]
+        return mesh.psum(on)[0].to(mesh.out_device)
 
     local_over = total([(i["total_all"] - i["total"]).clamp_min(0) for i in infos])
     bucket_over = total([(c - cap_exch).clamp_min(0).sum() for c in counts])
     stats = {"overflow": local_over + bucket_over,
              "num_records": total([i["total"] for i in infos]),
              "exchanged_records": total([c.sum() for c in counts])}
-    return image, stats
+    return tiled, stats
+
+
+def assemble(tiled, mesh: Mesh, width: int, height: int, cfg: RenderConfig):
+    """Stage 4: every owner's tiles, gathered in owner order on
+    ``mesh.out_device``, put back in global tile order and assembled into
+    the (H, W, 4) image."""
+    ndev, t = mesh.size, cfg.num_tiles
+    tpd = t // ndev
+    stacked = mesh.gather(tiled)
+    # stacked order is (owner d, local lt) -> global tile lt * D + d
+    g = torch.arange(t, device=stacked.device)
+    tiled = stacked[(g % ndev) * tpd + g // ndev]
+    return assemble_image(tiled[:, :, 0:3], tiled[:, :, 3], width, height, cfg)
+
+
+def render_fast_sharded(params, view, vp, focal_x, focal_y, tan_fovx,
+                        tan_fovy, width: int, height: int, cfg: RenderConfig,
+                        mesh: Mesh, exch_factor: float = 2.0
+                        ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Multi-device fast render. Returns ((H, W, 4) image, stats), both on
+    ``mesh.out_device`` (``devices[0]`` of a single-controller mesh).
+
+    ``params`` is a global dict (its row count divisible by the mesh size:
+    ``pad_scene_for_mesh``) or one dict per local shard (``shard_params``).
+    ``exch_factor`` sizes the exchange buckets (``exchange_capacity``);
+    ``exch_factor=D`` guarantees zero drops at D times the exchange
+    memory. Stats (device tensors): ``overflow`` (records dropped by the
+    local capacity or the buckets), ``num_records``, ``exchanged_records``.
+    """
+    tiled, stats = render_tiles(params, view, vp, focal_x, focal_y, tan_fovx,
+                                tan_fovy, width, height, cfg, mesh, exch_factor)
+    return assemble(tiled, mesh, width, height, cfg), stats
 
 
 def train_step_fast_sharded(raw, opt_state, target, view, vp, focal_x,
@@ -270,7 +324,7 @@ def train_step_fast_sharded(raw, opt_state, target, view, vp, focal_x,
     ``trainer.make_optimizer``); optimisation runs in raw space, as in
     ``train/trainer.py``. The loss is the 3DGS objective
     (1 - lambda) L1 + lambda D-SSIM (``losses.gs_loss``) on the assembled
-    image against ``target`` (on ``mesh.devices[0]``).
+    image against ``target`` (on ``mesh.out_device``).
 
     Returns ``(raw, opt_state, loss, stats)``. A nonzero
     ``stats["overflow"]`` means the loss saw an incomplete render: pass the

@@ -13,7 +13,13 @@ so each collective's transpose comes for free: the tiled ``all_gather``
 transposes to a reduce-scatter, ``all_to_all`` to the reverse
 all-to-all, ``psum`` to a broadcast. A shard's body never waits for the
 device (no ``.item()``, no host copy), so shards on distinct GPUs overlap.
-A process-group backend behind the same collectives is later work.
+
+The collectives are methods of the mesh, and a body loops over
+``mesh.local``, the (shard index, device) pairs this controller runs: all
+of them here, the one shard of its rank on ``parallel.multihost``'s
+process mesh, whose methods run the same collectives through
+``torch.distributed``. ``Mesh2D`` is a (view x splat) grid whose rows are
+1-D meshes (``parallel/mesh2d.py``).
 
 Design of the oracle (round 1, plain PyTorch, no kernel):
 
@@ -46,13 +52,18 @@ from openglgaussiansplattingrenderer_tpu_torch.ops.compositing import (
 from openglgaussiansplattingrenderer_tpu_torch.ops.transforms import build_covariance
 
 AXIS = "dev"
+VIEW_AXIS, SPLAT_AXIS = "view", "splat"     # the axes of a Mesh2D
 
 Params = Dict[str, torch.Tensor]
 
 
 class Mesh:
     """One mesh axis (``AXIS``) over an explicit list of devices, shard d on
-    ``devices[d]``. The output of a sharded frame lies on ``devices[0]``."""
+    ``devices[d]``, all run by this controller. The output of a sharded
+    frame lies on ``devices[0]``.
+
+    Collectives take a list holding one tensor per local shard (here: every
+    shard, in shard order) and return one per local shard."""
 
     def __init__(self, devices: Sequence[Union[torch.device, str]]):
         self.devices = tuple(torch.device(d) for d in devices)
@@ -67,8 +78,106 @@ class Mesh:
     def shape(self) -> Dict[str, int]:
         return {AXIS: self.size}
 
+    @property
+    def local(self):
+        """(shard index, device) of each shard this controller runs."""
+        return list(enumerate(self.devices))
+
+    @property
+    def out_device(self) -> torch.device:
+        """Where ``gather`` puts its result."""
+        return self.devices[0]
+
     def __repr__(self) -> str:
         return f"Mesh({[str(d) for d in self.devices]})"
+
+    def local_shards(self, params) -> List[Params]:
+        """``params`` as one dict per local shard: a global dict is split by
+        ``shard_params``; a list of per-shard dicts is taken as it is."""
+        if isinstance(params, dict):
+            return shard_params(params, self)
+        if len(params) != self.size:
+            raise ValueError(f"{len(params)} parameter shards for {self.size} devices")
+        return list(params)
+
+    def all_gather(self, xs: List[torch.Tensor]) -> List[torch.Tensor]:
+        """Tiled all-gather on axis 0: every shard receives the
+        concatenation of all shards' tensors in shard order
+        (``jax.lax.all_gather(tiled=True)``). Its transpose is a
+        reduce-scatter."""
+        return [torch.cat([x.to(dev) for x in xs]) for dev in self.devices]
+
+    def all_to_all(self, xs: List[torch.Tensor]) -> List[torch.Tensor]:
+        """``jax.lax.all_to_all(split_axis=0, concat_axis=0, tiled=True)``:
+        each shard's tensor is split on axis 0 into D equal blocks; shard d
+        receives block d of every shard, concatenated in shard order. Its
+        transpose is the reverse all-to-all."""
+        d = self.size
+        for x in xs:
+            if x.shape[0] % d:
+                raise ValueError(f"all_to_all: axis 0 of {tuple(x.shape)} does not "
+                                 f"split into {d} blocks")
+        blocks = [x.split(x.shape[0] // d) for x in xs]
+        return [torch.cat([b[e].to(dev) for b in blocks])
+                for e, dev in enumerate(self.devices)]
+
+    def psum(self, xs: List[torch.Tensor]) -> List[torch.Tensor]:
+        """Sum over shards, the same value on every shard: summed in shard
+        order on the first device, then copied to each."""
+        total = xs[0].to(self.devices[0])
+        for x in xs[1:]:
+            total = total + x.to(self.devices[0])
+        return [total.to(dev) for dev in self.devices]
+
+    def pmean(self, xs: List[torch.Tensor]) -> List[torch.Tensor]:
+        return [t / self.size for t in self.psum(xs)]
+
+    def gather(self, xs: List[torch.Tensor]) -> torch.Tensor:
+        """The concatenation of all shards' tensors in shard order, once, on
+        ``out_device``: the input of what the controller computes whole
+        (an assembled image and its loss)."""
+        return torch.cat([x.to(self.out_device) for x in xs])
+
+
+class Mesh2D:
+    """A (view x splat) grid of devices: ``devices[r][s]`` runs splat shard
+    s of view row r. Row r is the 1-D ``Mesh`` ``rows[r]`` over the splat
+    axis, whose collectives the splat-sharded frame takes unchanged; a
+    device may repeat."""
+
+    def __init__(self, devices):
+        rows = [tuple(torch.device(d) for d in row) for row in devices]
+        if not rows or not rows[0] or any(len(r) != len(rows[0]) for r in rows):
+            raise ValueError("a 2-D mesh needs a non-empty rectangular grid of devices")
+        self.devices = tuple(rows)
+        self.rows = tuple(Mesh(r) for r in rows)
+
+    @property
+    def shape(self) -> Dict[str, int]:
+        return {VIEW_AXIS: len(self.devices), SPLAT_AXIS: len(self.devices[0])}
+
+    def __repr__(self) -> str:
+        return f"Mesh2D({[[str(d) for d in r] for r in self.devices]})"
+
+    def psum(self, xss: List[List[torch.Tensor]]) -> List[List[torch.Tensor]]:
+        """Sum over both axes (``xss[r][s]`` of view row r, splat shard s),
+        the same value on every device: each row's splat sum
+        (``rows[r].psum``), then the rows' sums added in row order on the
+        first device and copied to each."""
+        row_sums = [row.psum(xs)[0] for row, xs in zip(self.rows, xss)]
+        total = row_sums[0].to(self.devices[0][0])
+        for x in row_sums[1:]:
+            total = total + x.to(self.devices[0][0])
+        return [[total.to(dev) for dev in row] for row in self.devices]
+
+
+def _cuda_cards(n: int) -> List[torch.device]:
+    avail = torch.cuda.device_count() if torch.cuda.is_available() else 0
+    if n < 1 or n > avail:
+        raise RuntimeError(
+            f"{n} CUDA devices asked for, {avail} present; pass devices=[...] "
+            "for a mesh of repeated or CPU devices")
+    return [torch.device("cuda", i) for i in range(n)]
 
 
 def make_mesh(n_devices: Optional[int] = None, devices=None) -> Mesh:
@@ -80,13 +189,30 @@ def make_mesh(n_devices: Optional[int] = None, devices=None) -> Mesh:
         if n_devices is not None and n_devices != len(devices):
             raise ValueError(f"n_devices={n_devices} but {len(devices)} devices given")
         return Mesh(devices)
-    avail = torch.cuda.device_count() if torch.cuda.is_available() else 0
-    n = avail if n_devices is None else n_devices
-    if n < 1 or n > avail:
-        raise RuntimeError(
-            f"make_mesh: {n} CUDA devices asked for, {avail} present; pass "
-            "devices=[...] for a mesh of repeated or CPU devices")
-    return Mesh([torch.device("cuda", i) for i in range(n)])
+    if n_devices is None:
+        n_devices = torch.cuda.device_count() if torch.cuda.is_available() else 0
+    try:
+        return Mesh(_cuda_cards(n_devices))
+    except RuntimeError as e:
+        raise RuntimeError(f"make_mesh: {e}") from None
+
+
+def make_mesh2d(dv: int, ds: int, devices=None) -> Mesh2D:
+    """A (dv x ds) mesh, row-major over ``devices`` (a list of dv * ds,
+    repeats allowed: ``["cuda:0"] * 4``, ``["cpu"] * 8``) or, without it,
+    over dv * ds distinct CUDA devices. Raises when fewer CUDA devices exist
+    than asked for, as ``make_mesh`` does."""
+    if dv < 1 or ds < 1:
+        raise ValueError(f"a 2-D mesh needs positive dims, got {dv}x{ds}")
+    if devices is None:
+        try:
+            devices = _cuda_cards(dv * ds)
+        except RuntimeError as e:
+            raise RuntimeError(f"make_mesh2d: {e}") from None
+    if len(devices) != dv * ds:
+        raise ValueError(f"a {dv}x{ds} mesh needs {dv * ds} devices, {len(devices)} given")
+    devices = list(devices)
+    return Mesh2D([devices[r * ds:(r + 1) * ds] for r in range(dv)])
 
 
 def on_device(dev: torch.device):
@@ -97,41 +223,25 @@ def on_device(dev: torch.device):
     return contextlib.nullcontext()
 
 
-# ---- collectives: lists with one tensor per shard --------------------------
+# ---- collectives: lists with one tensor per local shard --------------------
 
 def all_gather(xs: List[torch.Tensor], mesh: Mesh) -> List[torch.Tensor]:
-    """Tiled all-gather on axis 0: every shard receives the concatenation of
-    all shards' tensors in shard order (``jax.lax.all_gather(tiled=True)``).
-    Its transpose is a reduce-scatter."""
-    return [torch.cat([x.to(dev) for x in xs]) for dev in mesh.devices]
+    """``mesh.all_gather``: the tiled all-gather on axis 0."""
+    return mesh.all_gather(xs)
 
 
 def all_to_all(xs: List[torch.Tensor], mesh: Mesh) -> List[torch.Tensor]:
-    """``jax.lax.all_to_all(split_axis=0, concat_axis=0, tiled=True)``: each
-    shard's tensor is split on axis 0 into D equal blocks; shard d receives
-    block d of every shard, concatenated in shard order. Its transpose is
-    the reverse all-to-all."""
-    d = mesh.size
-    for x in xs:
-        if x.shape[0] % d:
-            raise ValueError(f"all_to_all: axis 0 of {tuple(x.shape)} does not "
-                             f"split into {d} blocks")
-    blocks = [x.split(x.shape[0] // d) for x in xs]
-    return [torch.cat([b[e].to(dev) for b in blocks])
-            for e, dev in enumerate(mesh.devices)]
+    """``mesh.all_to_all``: the tiled all-to-all on axis 0."""
+    return mesh.all_to_all(xs)
 
 
 def psum(xs: List[torch.Tensor], mesh: Mesh) -> List[torch.Tensor]:
-    """Sum over shards, the same value on every shard: summed in shard
-    order on the first device, then copied to each."""
-    total = xs[0].to(mesh.devices[0])
-    for x in xs[1:]:
-        total = total + x.to(mesh.devices[0])
-    return [total.to(dev) for dev in mesh.devices]
+    """``mesh.psum``: the sum over shards on every shard."""
+    return mesh.psum(xs)
 
 
 def pmean(xs: List[torch.Tensor], mesh: Mesh) -> List[torch.Tensor]:
-    return [t / mesh.size for t in psum(xs, mesh)]
+    return mesh.pmean(xs)
 
 
 # ---- parameters -------------------------------------------------------------
@@ -171,16 +281,6 @@ def shard_params(params: Params, mesh: Mesh) -> List[Params]:
             for d, dev in enumerate(mesh.devices)]
 
 
-def local_shards(params, mesh: Mesh) -> List[Params]:
-    """``params`` as one dict per shard: a global dict is split by
-    ``shard_params``; a list of per-shard dicts is taken as it is."""
-    if isinstance(params, dict):
-        return shard_params(params, mesh)
-    if len(params) != mesh.size:
-        raise ValueError(f"{len(params)} parameter shards for {mesh.size} devices")
-    return list(params)
-
-
 def gather_shards(shards: List[Params], device) -> Params:
     """Per-shard dicts -> one global dict on ``device`` (shard order)."""
     return {k: torch.cat([s[k].to(device) for s in shards]) for k in shards[0]}
@@ -208,7 +308,7 @@ def render_sharded(params, view, vp, focal_x, focal_y, tan_fovx, tan_fovy,
     count divisible by the mesh size: ``pad_scene_for_mesh``) or one dict
     per shard. Returns the full (H, W, 4) image on ``mesh.devices[0]``.
     Plain PyTorch: it launches no kernel."""
-    shards = local_shards(params, mesh)
+    shards = mesh.local_shards(params)
     tpd = check_tiles(cfg, mesh)
     packed, tiles, depths = [], [], []
     for dev, p in zip(mesh.devices, shards):

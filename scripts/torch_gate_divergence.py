@@ -34,11 +34,19 @@ as in the gate mode: a pixel the replays of the two streams do not tell
 apart can still differ where one frame's float32 rounding took such a
 record to the other side.
 
+``--frame packed`` renders the uniform flagship on the exact pair key and
+on the packed key (22 bits of depth: records of one tile whose quantised
+depths are equal tie and keep splat order, where the pair key orders them
+by float depth). Both sorts take the same records, so for each pixel the
+replay runs the tile's records in both orders, names the tied records that
+the two orders place differently and that the pixel blends (record,
+packed key, depth, alpha), and compares the replayed change with the
+observed one; a pixel with no such tie behind it is unexplained, a fault.
+
 Logs go to stderr; the last line of stdout is one JSON object:
 ``{"frame", "max_diff", "bad_px", "explained", "findings": [...]}``, a
-finding per pixel. A pixel is explained when the change a named record
-predicts is within 35% of the observed change. Without a CUDA device the
-script exits 1.
+finding per pixel. A pixel is explained when the change a named record predicts is within 35% of the
+observed change. Without a CUDA device the script exits 1.
 """
 
 from __future__ import annotations
@@ -60,6 +68,7 @@ from openglgaussiansplattingrenderer_tpu_torch import Camera, RenderConfig  # no
 from openglgaussiansplattingrenderer_tpu_torch.convert import params_from_numpy  # noqa: E402
 from openglgaussiansplattingrenderer_tpu_torch.io import ply as ply_io  # noqa: E402
 from openglgaussiansplattingrenderer_tpu_torch.ops import fastpath  # noqa: E402
+from openglgaussiansplattingrenderer_tpu_torch.ops.kernels import records as kr  # noqa: E402
 from openglgaussiansplattingrenderer_tpu_torch.ops.compositing import padded_dims  # noqa: E402
 from openglgaussiansplattingrenderer_tpu_torch.render import (  # noqa: E402
     autotune_capacity,
@@ -268,9 +277,101 @@ def attribute_two_streams(f32, q16, bad, cfg):
     return findings
 
 
+class TiedStreams:
+    """One frame's records in two stable (tile, depth) orders, the exact
+    pair key's and the packed key's. ``tile(t)`` gives the tile's records
+    (9, n) float64 in each order, the records' indices in the unsorted
+    record array and packed keys in packed order, and each packed-order
+    record's position in the pair order."""
+
+    def __init__(self, params, args, cfg):
+        w, h = args[6], args[7]
+        dev = params["means"].device
+        view, vp = (torch.as_tensor(m, dtype=torch.float32, device=dev) for m in args[:2])
+        t = cfg.num_tiles
+        with torch.no_grad():
+            self.fields, rec_t, rec_d, _ = fastpath.expand_depth_records(
+                params, view, vp, *args[2:], cfg)
+            self.orders, self.bounds = [], []
+            for key, shift in ((kr.pair_key(rec_t, rec_d), 32),
+                               (kr.packed_key(rec_t, rec_d), kr.PACKED_DEPTH_BITS)):
+                sk, order = torch.sort(key, stable=True)
+                edges = torch.arange(t + 1, dtype=torch.int64, device=dev) << shift
+                self.orders.append(order)
+                self.bounds.append(torch.searchsorted(sk, edges).cpu().numpy())
+                if shift != 32:
+                    self.packed_sorted = sk
+            self.depth = rec_d
+        wp, hp = padded_dims(w, h, cfg)
+        self.pw, self.ph, self.gx = wp // cfg.grid_x, hp // cfg.grid_y, cfg.grid_x
+        self._tiles = {}
+
+    def tile_of(self, px, py):
+        return (py // self.ph) * self.gx + px // self.pw
+
+    def tile(self, t):
+        if t not in self._tiles:
+            self._tiles[t] = self._tile(t)
+        return self._tiles[t]
+
+    def _tile(self, t):
+        (bp, bq), (op, oq) = self.bounds, self.orders
+        p_ids = op[bp[t]:bp[t + 1]]
+        q_ids = oq[bq[t]:bq[t + 1]]
+        p_np, q_np = p_ids.cpu().numpy(), q_ids.cpu().numpy()
+        inv = np.argsort(p_np)
+        return {"pair": self.fields[:, p_ids].double().cpu().numpy(),
+                "packed": self.fields[:, q_ids].double().cpu().numpy(),
+                "ids": q_np,
+                "keys": self.packed_sorted[bq[t]:bq[t + 1]].cpu().numpy(),
+                "depth": self.depth[q_ids].double().cpu().numpy(),
+                "pair_pos": inv[np.searchsorted(p_np[inv], q_np)]}
+
+
+def reordered_ties(keys, pair_pos):
+    """Packed-order positions of records that tie on the packed key with a
+    neighbour and stand elsewhere in their tie group in the pair order."""
+    out = []
+    start = 0
+    for k in range(1, len(keys) + 1):
+        if k == len(keys) or keys[k] != keys[start]:
+            if k - start > 1:
+                grp = pair_pos[start:k]
+                out += [start + i for i in np.flatnonzero(grp != np.sort(grp))]
+            start = k
+    return np.asarray(out, np.int64)
+
+
+def attribute_ties(streams, bad, cfg):
+    """One finding per bad pixel of the packed frame against the pair
+    frame: the replayed change of the two orders, and the reordered tied
+    records the pixel blends."""
+    findings = []
+    for px, py, diff in bad:
+        t = streams.tile_of(px, py)
+        tl = streams.tile(t)
+        pix_p, _, _, _, _ = blend(tl["pair"], px, py, cfg)
+        pix_q, a_q, kept_q, _, stop_q = blend(tl["packed"], px, py, cfg)
+        replayed = _change(pix_q, pix_p)
+        tied = [int(k) for k in reordered_ties(tl["keys"], tl["pair_pos"])
+                if k < stop_q and kept_q[k]]
+        named = [{"record": int(tl["ids"][k]), "packed_key": int(tl["keys"][k]),
+                  "depth": float(tl["depth"][k]), "alpha": float(a_q[k])} for k in tied]
+        explained = bool(named) and _matches(replayed, diff)
+        if named and not explained:
+            # a threshold flip inside either frame's float32 rounding
+            for rec in (tl["pair"], tl["packed"]):
+                explained |= any(_matches(c["predicted_diff"], diff)
+                                 for c in borderline(rec, px, py, cfg))
+        findings.append({"px": [px, py], "tile": int(t), "diff": diff,
+                         "replayed_diff": replayed, "tied_records": named,
+                         "explained": explained})
+    return findings
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--frame", choices=("gate", "q16"), default="gate")
+    ap.add_argument("--frame", choices=("gate", "q16", "packed"), default="gate")
     opts = ap.parse_args(argv)
     if not torch.cuda.is_available():
         log("torch_gate_divergence: no CUDA device; nothing was run")
@@ -287,6 +388,14 @@ def main(argv=None) -> int:
             max_diff, bad = bad_pixels(img_a, img_b)
             log(f"kernels vs oracle: max abs diff {max_diff:.3e}; {len(bad)} px > {BAD}")
             findings = attribute(Stream(params, args, cfg), bad, cfg)
+        elif opts.frame == "packed":
+            params, args, cfg = flagship_frame(dev)
+            pair = dataclasses.replace(cfg, depth_key="pair")
+            img_a, _ = render_arrays(params, *args, cfg)
+            img_b, _ = render_arrays(params, *args, pair)
+            max_diff, bad = bad_pixels(img_a, img_b)
+            log(f"packed vs pair: max abs diff {max_diff:.3e}; {len(bad)} px > {BAD}")
+            findings = attribute_ties(TiedStreams(params, args, pair), bad, cfg)
         else:
             params, args, cfg = flagship_frame(dev)
             q16 = inference_config(cfg)

@@ -13,6 +13,12 @@ The port's counterpart of ``scripts/train_cli.py``. The scene is one of:
 
 ``--densify`` grows and prunes the set with adaptive density control
 (``train.densify.fit_scene_adaptive``) under a static ``--capacity``.
+``--data-parallel NDEV`` trains a batch of NDEV views a step with the
+parameters replicated (``parallel.data_parallel.fit_scene_dp``);
+``--mesh2d DVxDS`` trains on a DV x DS (view x splat) mesh
+(``parallel.mesh2d.fit_scene_2d``). Both compose with ``--densify``; on
+``--device cuda`` their meshes are over distinct cards, on ``--device
+cpu`` over repeated CPU devices.
 Writes the fitted scene as a PLY, a target | fit comparison PNG of view 0
 and a JSON history (loss, PSNR, live splats). Training runs on the CUDA
 card (``--device cuda``, the default) with the port's kernels, or on the
@@ -24,6 +30,7 @@ Examples:
   python3 scripts/torch_train_cli.py scene.ply --densify --capacity 2000
   python3 scripts/torch_train_cli.py scene.ply --device cpu --width 64 \\
       --height 64 --steps 20 --densify
+  python3 scripts/torch_train_cli.py scene.ply --mesh2d 2x2 --densify
 
 ``main(argv)`` runs it in-process and returns the exit code.
 """
@@ -34,8 +41,6 @@ import os
 import sys
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
-
-NOT_PORTED = "not ported yet (ROADMAP queue 1 item 5)"
 
 
 def parse_args(argv=None):
@@ -65,9 +70,15 @@ def parse_args(argv=None):
     ap.add_argument("--densify", action="store_true",
                     help="enable adaptive density control")
     ap.add_argument("--data-parallel", type=int, default=0, metavar="NDEV",
-                    help=f"view-parallel training: {NOT_PORTED}")
+                    help="view-parallel training over NDEV devices (one view "
+                    "per device per step; params replicated, grads pmean-"
+                    "synced). 0 = off; requires NDEV <= device count; "
+                    "composes with --densify")
     ap.add_argument("--mesh2d", default="", metavar="DVxDS",
-                    help=f"2-D mesh training: {NOT_PORTED}")
+                    help="2-D mesh training, e.g. 2x4: DV view rows x DS "
+                    "splat shards (params splat-sharded, batch of DV views "
+                    "per step). Mutually exclusive with --data-parallel; "
+                    "composes with --densify")
     ap.add_argument("--capacity", type=int, default=0,
                     help="densify capacity (0 = 4x init count)")
     ap.add_argument("--densify-interval", type=int, default=100)
@@ -209,11 +220,36 @@ def load_scene(args, cfg, device, rng):
     return cams, targets, start, extent
 
 
+def parse_mesh2d(text):
+    """``DVxDS`` -> (dv, ds), or None when it does not parse."""
+    try:
+        dv, ds = (int(x) for x in text.lower().split("x"))
+    except ValueError:
+        return None
+    return (dv, ds) if dv >= 1 and ds >= 1 else None
+
+
+def mesh_devices(n, device):
+    """``n`` devices of the kind ``device`` names: distinct cards for
+    cuda, the CPU repeated for cpu; None when fewer cards exist."""
+    import torch
+
+    if device.type == "cpu":
+        return ["cpu"] * n
+    have = torch.cuda.device_count() if torch.cuda.is_available() else 0
+    return [f"cuda:{i}" for i in range(n)] if n <= have else None
+
+
 def main(argv=None) -> int:
     args = parse_args(argv)
-    if args.data_parallel or args.mesh2d:
-        flag = "--data-parallel" if args.data_parallel else "--mesh2d"
-        print(f"FATAL: {flag} is {NOT_PORTED}", file=sys.stderr)
+    if args.mesh2d and args.data_parallel:
+        print("FATAL: --mesh2d is mutually exclusive with --data-parallel",
+              file=sys.stderr)
+        return 1
+    mesh2d_dims = parse_mesh2d(args.mesh2d) if args.mesh2d else None
+    if args.mesh2d and mesh2d_dims is None:
+        print(f"FATAL: --mesh2d wants DVxDS with positive dims (e.g. 2x4), got "
+              f"{args.mesh2d!r}", file=sys.stderr)
         return 1
 
     import numpy as np
@@ -237,6 +273,13 @@ def main(argv=None) -> int:
     from openglgaussiansplattingrenderer_tpu_torch.train import densify as dn
 
     device = torch.device(args.device)
+    need = (mesh2d_dims[0] * mesh2d_dims[1] if mesh2d_dims else args.data_parallel)
+    mesh_devs = mesh_devices(need, device) if need else None
+    if need and mesh_devs is None:
+        flag = f"--mesh2d {args.mesh2d}" if mesh2d_dims else f"--data-parallel {need}"
+        have = torch.cuda.device_count() if torch.cuda.is_available() else 0
+        print(f"FATAL: {flag} needs {need} CUDA devices, have {have}", file=sys.stderr)
+        return 1
     cfg = RenderConfig.for_resolution(
         args.width, args.height, tile_px=args.tile_px,
         use_pallas=not args.no_pallas, chunk=args.chunk,
@@ -264,6 +307,7 @@ def main(argv=None) -> int:
     if args.bf16_grads:
         kr.BWD_COT_PACK = "bf16"
     try:
+        dc = None
         if args.densify:
             capacity = args.capacity or 4 * start["means"].shape[0]
             dc = DensifyConfig(capacity=capacity,
@@ -273,17 +317,36 @@ def main(argv=None) -> int:
                                start_step=args.densify_start,
                                stop_step=int(args.steps * 0.8),
                                opacity_reset_interval=args.opacity_reset_interval)
+        common = dict(log_every=args.log_every, save_every=args.save_every,
+                      checkpoint_path=ckpt, resume=args.resume or None)
+        if mesh2d_dims or args.data_parallel:
+            par = dict(common, width=args.width, height=args.height, dc=dc,
+                       seed=args.seed)
+            if mesh2d_dims:
+                from openglgaussiansplattingrenderer_tpu_torch.parallel import mesh2d
+
+                out = mesh2d.fit_scene_2d(
+                    start, targets, cams, cfg, tc,
+                    mesh=mesh2d.make_mesh2d(*mesh2d_dims, devices=mesh_devs), **par)
+            else:
+                from openglgaussiansplattingrenderer_tpu_torch.parallel import (
+                    data_parallel as dp,
+                )
+
+                out = dp.fit_scene_dp(start, targets, cams, cfg, tc,
+                                      mesh=dp.make_mesh(devices=mesh_devs), **par)
+            fitted, hist = out[0], out[-1]
+            alive = out[1] if dc is not None else None
+        elif args.densify:
             fitted, alive, hist = fit_scene_adaptive(
-                start, targets, cams, cfg, dc, tc=tc, seed=args.seed,
-                log_every=args.log_every, save_every=args.save_every,
-                checkpoint_path=ckpt, resume=args.resume or None, device=device)
+                start, targets, cams, cfg, dc, tc=tc, seed=args.seed, device=device,
+                **common)
+        else:
+            fitted, hist = fit_scene(start, targets, cams, cfg, tc, device=device,
+                                     **common)
+        if dc is not None:
             out_params = dn.compact_params(fitted, alive)
         else:
-            fitted, hist = fit_scene(start, targets, cams, cfg, tc,
-                                     log_every=args.log_every,
-                                     save_every=args.save_every,
-                                     checkpoint_path=ckpt,
-                                     resume=args.resume or None, device=device)
             out_params = {k: v.detach().cpu().numpy() for k, v in fitted.items()}
     finally:
         kr.BWD_COT_PACK = pack

@@ -343,10 +343,14 @@ def test_port_never_imports_jax():
             "openglgaussiansplattingrenderer_tpu_torch.parallel.sharded, "
             "openglgaussiansplattingrenderer_tpu_torch.parallel.fast_sharded, "
             "openglgaussiansplattingrenderer_tpu_torch.parallel.data_parallel, "
+            "openglgaussiansplattingrenderer_tpu_torch.parallel.mesh2d, "
+            "openglgaussiansplattingrenderer_tpu_torch.parallel.multihost, "
+            "openglgaussiansplattingrenderer_tpu_torch.dryrun, "
             "importlib.util as u; "
             "[s.loader.exec_module(u.module_from_spec(s)) for s in ("
             "u.spec_from_file_location(n, f'scripts/{n}.py') for n in ("
-            "'torch_train_cli', 'torch_render_cli', 'torch_viewer_fps_bench'))]; "
+            "'torch_train_cli', 'torch_render_cli', 'torch_viewer_fps_bench', "
+            "'torch_scaling_report', 'torch_gate_divergence'))]; "
             "assert 'jax' not in sys.modules, 'jax imported'")
     repo = str(PKG_DIR.parent)
     env = {**os.environ, "PYTHONPATH": repo}
@@ -362,7 +366,9 @@ def test_port_never_imports_jax():
               PKG_DIR.parent / "scripts" / "torch_gate_divergence.py",
               PKG_DIR.parent / "scripts" / "torch_train_cli.py",
               PKG_DIR.parent / "scripts" / "torch_render_cli.py",
-              PKG_DIR.parent / "scripts" / "torch_viewer_fps_bench.py"]
+              PKG_DIR.parent / "scripts" / "torch_viewer_fps_bench.py",
+              PKG_DIR.parent / "scripts" / "torch_scaling_report.py",
+              PKG_DIR.parent / "tests" / "_torch_multihost_worker.py"]
     for f in files:
         assert not pat.search(f.read_text()), f
 

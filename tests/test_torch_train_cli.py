@@ -104,11 +104,67 @@ def test_cli_densify_run_and_resume(tmp_path, capsys):
     assert Path(resumed[0]).read_bytes() == Path(full[0]).read_bytes()
 
 
+PARALLEL = ["--views", "2", "--orbit-radius", "4.0", "--init-count", "10", "--densify",
+            "--capacity", "24", "--densify-start", "1", "--densify-interval", "2",
+            "--grad-threshold", "1e-6", "--steps", "4"]
+
+
 @pytest.mark.parametrize("flag", [["--data-parallel", "2"], ["--mesh2d", "2x2"]])
-def test_cli_refuses_the_unported_parallel_modes(tmp_path, capsys, flag):
+def test_cli_parallel_routes_write_the_direct_fit(tmp_path, flag):
+    """``--data-parallel 2`` and ``--mesh2d 2x2`` on ``--device cpu`` train
+    through ``fit_scene_dp`` / ``fit_scene_2d`` on repeated CPU devices:
+    each writes its three files, and its PLY is byte for byte the PLY of
+    the direct call on the same scene, views and start."""
+    from openglgaussiansplattingrenderer_tpu_torch.parallel import data_parallel as dp
+    from openglgaussiansplattingrenderer_tpu_torch.parallel import mesh2d
+    from openglgaussiansplattingrenderer_tpu_torch.train import densify as dn
+    from openglgaussiansplattingrenderer_tpu_torch.train.trainer import TrainConfig
+
+    cli = _cli()
+    scene = _target_ply(tmp_path)
+    outs = _outs(tmp_path, "par")
+    argv = _argv(scene, outs, *PARALLEL, *flag)
+    assert cli.main(argv) == 0
+    for f in outs:
+        assert os.path.exists(f), f
+    hist = json.load(open(outs[2]))
+    assert [h["step"] for h in hist["history"]] == [0, 1, 2, 3]
+    assert np.isfinite(hist["final_psnr_view0"])
+
+    args = cli.parse_args(argv)
+    cfg = port.RenderConfig.for_resolution(64, 64, tile_px=32, chunk=256,
+                                           dup_capacity_factor=8.0)
+    cams, targets, start, extent = cli.load_scene(args, cfg, torch.device("cpu"),
+                                                  np.random.default_rng(0))
+    dc = dn.DensifyConfig(capacity=24, grad_threshold=1e-6, scene_extent=extent,
+                          interval=2, start_step=1, stop_step=3)
+    kw = dict(width=64, height=64, dc=dc, seed=0, log_every=1, verbose=False)
+    tc = TrainConfig(steps=4, lambda_dssim=0.2)
+    if flag[0] == "--mesh2d":
+        fitted, alive, _ = mesh2d.fit_scene_2d(
+            start, targets, cams, cfg, tc, mesh=mesh2d.make_mesh2d(2, 2, devices=["cpu"] * 4),
+            **kw)
+    else:
+        fitted, alive, _ = dp.fit_scene_dp(start, targets, cams, cfg, tc,
+                                           mesh=dp.make_mesh(devices=["cpu"] * 2), **kw)
+    direct = dn.compact_params(fitted, alive)
+    path = str(tmp_path / "direct.ply")
+    ply_io.save_ply(path, direct["means"], direct["quats"], direct["scales"],
+                    direct["opacities"], direct["colors"])
+    assert Path(path).read_bytes() == Path(outs[0]).read_bytes()
+    assert hist["splats"] == direct["means"].shape[0]
+
+
+@pytest.mark.parametrize("flags,fatal", [
+    (["--data-parallel", "2", "--mesh2d", "2x2"], "mutually exclusive"),
+    (["--mesh2d", "2by2"], "wants DVxDS with positive dims"),
+    (["--mesh2d", "64x64", "--device", "cuda"], "needs 4096 CUDA devices"),
+])
+def test_cli_refuses_what_the_parallel_flags_cannot_run(tmp_path, capsys, flags, fatal):
     outs = _outs(tmp_path, "dp")
-    assert _cli().main(_argv(str(tmp_path / "none.ply"), outs, *flag)) == 1
-    assert "not ported yet (ROADMAP queue 1 item 5)" in capsys.readouterr().err
+    assert _cli().main(_argv(str(tmp_path / "none.ply"), outs, *flags)) == 1
+    err = capsys.readouterr().err
+    assert "FATAL" in err and fatal in err
     assert not any(os.path.exists(f) for f in outs)
 
 
