@@ -124,8 +124,27 @@ csrc`` (nvcc, at first use), then:
    ``--mesh2d`` and ``--data-parallel`` routes; ``dryrun_multichip(8)``;
    the scaling report (``scripts/torch_scaling_report.py``); times and
    peak memory;
+10. the scripts of ``scripts/torch_*.py`` that port the JAX package's
+   benches, each through its ``main`` on the card at its full width, the
+   counts reset just before and read just after each: the flagship bench
+   (3,616,103 splats at 1024x512, both scenes, no overflow, the headline
+   line), the scale test (3,616,103 splats at 1920x1080 through the PLY
+   writer and the native loader, the loaded means within 1e-6 of the
+   written, no overflow, finite gradients), the baseline configs (the
+   single Gaussian within 1e-2 of the golden, the worst directional finite
+   difference within 15%), the radix-sort bench at its sizes and at
+   6,291,456 keys (every sort exact), the stage profile (1M splats at
+   1080p with the backward prefixes; the "sort2" bounds end at the full
+   frame's binned records, and kernels 4 and 5 on those sorted records
+   held to their plain versions as in phase [2]), the training bench (CAP
+   100,000, 600 steps: PSNR rises, at most CAP alive, one compositor
+   backward a step), the novel-view bench (CAP 1,000,000, GT 500,000, 72
+   poses, cut to 1,000 steps in two segments so that its resume runs: a
+   finite holdout PSNR) and the holdout eval of its checkpoint (within
+   0.01 dB of the bench's); kernels 1-7 launched in the phase;
 7. prints a JSON line of phase [3a]'s numbers, one of phases [8] and [9],
-   a JSON line of per-kernel results and, last, the device line.
+   one of phase [10]'s scripts, a JSON line of per-kernel results and,
+   last, the device line.
 
 Every check raises on failure; the exit code is nonzero and no result line
 is printed. There is no fallback: without CUDA the script exits 1.
@@ -205,6 +224,24 @@ M2_FIT_HEADROOM = 1.25             # record capacity of the 2-D fits over the fr
 # the dry run's logical shards
 PG_RANKS_ONE_CARD, PG_TIMEOUT_S, PG_INIT_TIMEOUT_S = 2, 600.0, 300.0
 DRYRUN_SHARDS = 8
+# phase [10], the scripts: the novel-view bench at its width (CAP 1,000,000,
+# GT 500,000, 72 poses) cut to two 500-step segments, so that its resume
+# runs; the radix-sort bench at its sizes and the frame's record count
+NV_STEPS, NV_SEGMENT = 1000, 500
+RADIX_SIZES = "524288,1048576,2097152,6291456"
+SCRIPT_ARGV = {                    # each script's own defaults, but for these
+    "torch_flagship_bench": [],
+    "torch_scale_test": [],
+    "torch_baseline_eval": [],
+    "torch_radix_sort_bench": ["--sizes", RADIX_SIZES],
+    "torch_profile_stages": ["--bwd-stages"],
+    "torch_train_bench": [],
+    "torch_novel_view_bench": ["--steps", str(NV_STEPS), "--segment", str(NV_SEGMENT)],
+    "torch_nv_holdout_eval": [],
+}
+BASELINE_GOLDEN_TOL = 1e-2         # the reference's own CPU/GPU tolerance
+FD_REL_TOL = 0.15                  # finite differences, ARCHITECTURE.md:179
+NV_EVAL_TOL_DB = 0.01              # the holdout eval against the bench, same checkpoint
 
 # The card's published peaks (NVIDIA H100 SXM data sheet): device memory
 # rate and float32 rate outside the tensor cores (a multiply-add counts 2).
@@ -1159,16 +1196,17 @@ def check_oracle(gate, flag):
     return launches, out
 
 
-def check_composite(name, frame, plain_once=False):
-    """Kernels 4 and 5 on the frame's own sorted records, with a seeded
-    cotangent and each backward fed its own forward's output. The plain
-    versions are timed as the kernels are, or with ``plain_once`` by the one
-    call that makes the reference. Returns the two kernels' result rows."""
+def check_composite(name, frame, plain_once=False, records=None):
+    """Kernels 4 and 5 on the frame's own sorted records (or on ``records``,
+    (sorted fields, bounds) of the frame), with a seeded cotangent and each
+    backward fed its own forward's output. The plain versions are timed as
+    the kernels are, or with ``plain_once`` by the one call that makes the
+    reference. Returns the two kernels' result rows."""
     import torch
 
     from openglgaussiansplattingrenderer_tpu_torch.ops.kernels import composite as kc
 
-    sf, bounds = frame.sorted_records()
+    sf, bounds = records if records is not None else frame.sorted_records()
     ox, oy, kw = frame.composite_inputs(sf)
     got = kc.composite(sf, bounds, ox, oy, **kw)
     pairs = {}
@@ -2681,6 +2719,135 @@ def check_dryrun_and_scaling(cards):
     return dry, rep
 
 
+def script_main(name, argv):
+    """``main(argv)`` of ``scripts/<name>.py`` on the card, its standard
+    output sent to standard error; returns (what main returned, what the
+    script's ``run`` returned inside it, or None where it has none)."""
+    mod = load_script(name)
+    ran = []
+    if hasattr(mod, "run"):
+        run = mod.run
+        mod.run = lambda args: ran.append(run(args)) or ran[0]
+    with contextlib.redirect_stdout(sys.stderr):
+        out = mod.main(argv)
+    return out, (ran[0] if ran else None)
+
+
+def check_scripts(dev):
+    """Phase [10]: each bench script through its ``main`` on the
+    card at its full width, the launch counts reset just before and read
+    just after each. Returns ({script: launches}, {script: its result})."""
+    import math
+
+    import torch
+
+    from openglgaussiansplattingrenderer_tpu_torch import Camera
+    from openglgaussiansplattingrenderer_tpu_torch.io import native
+
+    launches, outs = {}, {}
+
+    def drive(key, name, argv=()):
+        argv = SCRIPT_ARGV[name] + list(argv)
+        reset_launches()
+        t0 = time.perf_counter()
+        out, ran = script_main(name, argv)
+        torch.cuda.synchronize()
+        launches[key] = read_launches()
+        outs[key] = out
+        log(f"[10] {name} {' '.join(argv)}: {time.perf_counter() - t0:.1f} s; "
+            f"launches {launches[key]}")
+        return out, ran
+
+    head, (_, scenes) = drive("flagship_bench", "torch_flagship_bench")
+    for r in scenes.values():
+        assert r["records"] <= r["capacity"], f"flagship bench {r['scene']}: overflow"
+    assert head["metric"] == "fps_flagship_1024x512_fwd", head
+    assert head["value"] == min(r["fps"] for r in scenes.values()), head
+    outs["flagship_bench"] = dict(head, scenes=scenes)
+    log(f"[10] flagship bench: " + ", ".join(
+        f"{k} {r['fwd_ms']:.3f} ms ({r['fps']:.2f} fps)" for k, r in scenes.items())
+        + f"; headline {head['value']:.2f} fps")
+
+    assert native.available(), "native PLY loader not built"
+    out, (_, ex) = drive("scale_test", "torch_scale_test")
+    assert ex["written"] is not None, "scale test: the PLY was not written by the script"
+    err = float(abs(ex["loaded"]["means"] - ex["written"]["means"]).max())
+    log(f"[10] scale test: {out['num_splats']} splats, native load {out['native_load_s']:.2f} s, "
+        f"loaded means within {err:.3e} of the written; fwd {out['fwd_ms']:.3f} ms, "
+        f"fwd+bwd {out['fwdbwd_ms']:.3f} ms, overflow {out['overflow']}")
+    assert err <= 1e-6, f"scale test: loaded means {err:.3e} from the written scene"
+    assert out["overflow"] == 0 and out["grads_finite"], out
+    del ex
+
+    out, _ = drive("baseline_eval", "torch_baseline_eval")
+    c1, c3 = out["config1"], out["config3"]
+    log(f"[10] baseline: config 1 ({c1['src']}) {c1['max_abs_diff_vs_golden']:.3e} from "
+        f"the golden; config 2 {out['config2']['frame_ms']:.3f} ms; config 3 "
+        f"fwd+bwd {c3['fwdbwd_ms']:.3f} ms, worst finite difference "
+        f"{c3['worst_rel_err']:.4f}")
+    assert c1["max_abs_diff_vs_golden"] <= BASELINE_GOLDEN_TOL, c1
+    assert out["config2"]["overflow"] == 0, out["config2"]
+    assert c3["worst_rel_err"] <= FD_REL_TOL, c3
+
+    out, _ = drive("radix_sort_bench", "torch_radix_sort_bench")
+    for r in out["radix_bench"]:
+        log(f"[10] radix sort bench C={r['C']}: torch.sort + gather {r['lax_ms']:.3f} ms, "
+            f"radix31 {r['radix31_ms']:.3f}, radix9 {r['radix9_ms']:.3f} ms")
+        assert r["radix31_exact"] and r["radix9_exact"], r
+
+    out, (_, ex) = drive("profile_stages", "torch_profile_stages")
+    want = ["prep", "cumsum", "expand", "sort2", "full"]
+    assert list(out["prefix_ms"]) == want and len(out["bwd_stage_ms"]) == 4, out
+    sf, bounds = ex["sort2"]
+    assert int(bounds[-1]) == int(ex["full_stats"]["binned_records"]), (
+        "profile stages: the sort2 bounds miss the full frame's binned records")
+    log(f"[10] profile stages: prefixes " + ", ".join(
+        f"{k} {v:.3f}" for k, v in out["prefix_ms"].items())
+        + f" ms; compositor alone {out['composite_fwd_ms']:.3f} / fwd+bwd "
+        f"{out['composite_fwdbwd_ms']:.3f} ms; full fwd+bwd {out['full_fwdbwd_ms']:.3f} ms")
+    prof = load_script("torch_profile_stages")
+    pargs = prof.parse_args(SCRIPT_ARGV["torch_profile_stages"])
+    frame = Frame(prof.scene_of(pargs), Camera(0.0, 0.0, -8.0, width=pargs.width,
+                                               height=pargs.height), ex["cfg"], dev)
+    with torch.no_grad():
+        check_composite("profile stages, sort2 outputs", frame, records=(sf, bounds))
+    del ex, sf, bounds, frame
+
+    out, _ = drive("train_bench", "torch_train_bench")
+    curve = out["psnr_curve"]
+    log(f"[10] train bench: {out['steps']} steps at CAP {out['cap']}: "
+        f"{out['ms_per_step']:.3f} ms a step, PSNR {curve[0]['psnr']:.2f} -> "
+        f"{curve[-1]['psnr']:.2f} dB, holdout {out['holdout_psnr']:.2f} dB, alive "
+        f"{out['final_alive']}")
+    assert curve[-1]["psnr"] > curve[0]["psnr"], "train bench: PSNR did not rise"
+    assert out["final_alive"] <= out["cap"], out["final_alive"]
+    # every step's backward went through kernels 5 and 3 (two launches)
+    n = launches["train_bench"]
+    assert n["composite_bwd"] == out["steps"] and n["segsum"] == 2 * out["steps"], n
+
+    with tempfile.TemporaryDirectory() as tmp:
+        ckpt = os.path.join(tmp, "nv.ckpt.npz")
+        out, _ = drive("novel_view_bench", "torch_novel_view_bench",
+                       ["--ckpt", ckpt, "--grid", os.path.join(tmp, "grid.png")])
+        log(f"[10] novel-view bench: {out['steps']} steps, train "
+            f"{out['final_train_psnr']:.3f} dB, holdout {out['final_holdout_psnr']:.3f} "
+            f"dB, SSIM {out['final_holdout_ssim']:.4f}, alive {out['final_alive']}, "
+            f"{out['total_train_s']:.1f} s")
+        assert len(out["curve"]) == NV_STEPS // NV_SEGMENT, out["curve"]
+        assert math.isfinite(out["final_holdout_psnr"]), out
+        ev, _ = drive("nv_holdout_eval", "torch_nv_holdout_eval", ["--ckpt", ckpt])
+    gap = abs(ev["holdout_psnr_mean"] - out["final_holdout_psnr"])
+    log(f"[10] holdout eval of the bench's checkpoint: {ev['holdout_psnr_mean']:.4f} dB, "
+        f"{gap:.3e} dB from the bench's")
+    assert ev["step"] == NV_STEPS and gap <= NV_EVAL_TOL_DB, (ev, out)
+
+    for k in ("cumsum", "expand", "segsum", "composite", "composite_bwd",
+              "radix_counts", "radix_scatter"):
+        assert sum(v[k] for v in launches.values()) > 0, (
+            f"{k} kernel never launched in phase [10]")
+    return launches, outs
+
+
 def main(argv=None) -> int:
     import argparse
 
@@ -2887,6 +3054,11 @@ def main(argv=None) -> int:
     mesh_nums["dryrun"], mesh_nums["scaling"] = check_dryrun_and_scaling(1)
     log(f"[9] the phase took {time.perf_counter() - t0:.1f} s")
 
+    # ---- 10. the scripts -----------------------------------------------------
+    t0 = time.perf_counter()
+    script_launches, script_nums = check_scripts(dev)
+    log(f"[10] the phase took {time.perf_counter() - t0:.1f} s")
+
     # ---- 2, continued: the probe kernels (3.2 GB written a launch, and a
     # rebuild of the library: kept behind every time of the main paths) -----
     with torch.no_grad():
@@ -2921,10 +3093,12 @@ def main(argv=None) -> int:
                      "mesh2d_fit_launches": mesh_launches["mesh2d_fit"][name],
                      "pg_frame_launches": mesh_launches["pg_frame"][name],
                      "pg_step_launches": mesh_launches["pg_step"][name],
+                     "scripts_launches": sum(v[name] for v in script_launches.values()),
                      **results[name]})
     log(f"[7] card and power limit, again beside the results: {card}")
     log(json.dumps({"oracle": oracle}))
     log(json.dumps({"viewer": viewer_nums, "multi_device": mesh_nums}))
+    log(json.dumps({"scripts": script_nums, "launches": script_launches}))
     log(json.dumps({"kernels": rows}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -33,7 +33,7 @@ is a kernel too. Sort keys (tile, depth) and all statistics are detached.
 
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from typing import Dict, NamedTuple, Tuple
 
 import torch
 
@@ -52,6 +52,16 @@ from openglgaussiansplattingrenderer_tpu_torch.ops.transforms import build_covar
 # The JAX package rounds capacity to whole expand grid steps (512-record
 # sub-blocks x 8); keeping its rounding keeps num_records and overflow equal.
 CAPACITY_MULTIPLE = 512 * 8
+
+# The frame's stages in order, the names ``stop_after`` takes.
+STAGES = ("prep", "sort1", "cumsum", "expand", "sort2")
+
+
+class Stopped(NamedTuple):
+    """What a frame cut by ``stop_after`` returns: the stage's output and
+    its aux dict, as ``render_fast``'s ``(out, aux)``."""
+    out: torch.Tensor
+    aux: dict
 
 
 def composite_kwargs(width: int, height: int, cfg: RenderConfig) -> dict:
@@ -140,24 +150,42 @@ def depth_sort_table(table, prep):
 
 def expand_depth_records(params: Dict[str, torch.Tensor], view, vp, focal_x,
                          focal_y, tan_fovx, tan_fovy, width: int, height: int,
-                         cfg: RenderConfig):
+                         cfg: RenderConfig, *, stop_after: str | None = None):
     """Preprocess, prefix sum and expansion to splat-major records.
 
     Returns (fields (9, C), tile (C,) int32, depth (C,), info) with info
-    holding ``prep``, ``total`` and ``total_all`` (device scalars).
+    holding ``prep``, ``total`` and ``total_all`` (device scalars); with
+    ``stop_after`` one of "prep", "sort1", "cumsum", "expand", a
+    ``Stopped`` (``render_fast`` says what each holds).
     """
+    if stop_after is not None and stop_after not in STAGES:
+        # the JAX package renders the whole frame then
+        raise ValueError(f"stop_after must be one of {STAGES} or None, "
+                         f"got {stop_after!r}")
     n = params["means"].shape[0]
     table, prep = splat_table(params, view, vp, focal_x, focal_y, tan_fovx,
                               tan_fovy, width, height, cfg)
+    if stop_after == "prep":
+        return Stopped(prep["mean2d"], {"conic": prep["conic"],
+                                        "colors": table[0][6:9].t(),
+                                        "depth": prep["depth"]})
     counts = prep["counts"]
     if cfg.hoist_depth_sort:
         table, counts = depth_sort_table(table, prep)
+    fields, tile_min, tile_ext, _ = table
+    if stop_after == "sort1":
+        return Stopped(fields[0], {"fields": fields, "tile_min": tile_min,
+                                   "tile_ext": tile_ext, "counts": counts})
     kw = expand_kwargs(n, width, height, cfg)
     cum_incl = ks.cumsum(counts)
+    if stop_after == "cumsum":
+        return Stopped(cum_incl, {"fields": fields})
     total_all = cum_incl[-1] if n else torch.zeros(
         (), dtype=torch.int32, device=cum_incl.device)
     total = torch.clamp_max(total_all, kw["capacity"])
     rec_f, rec_t, rec_d = kr.expand(*table, cum_incl, **kw)
+    if stop_after == "expand":
+        return Stopped(rec_f, {"tile": rec_t, "depth": rec_d})
     return rec_f, rec_t, rec_d, {"prep": prep, "total": total,
                                  "total_all": total_all}
 
@@ -220,19 +248,44 @@ def sort_records(rec_f, rec_t, rec_d, width: int, height: int,
 
 
 def render_fast(params: Dict[str, torch.Tensor], view, vp, focal_x, focal_y,
-                tan_fovx, tan_fovy, width: int, height: int, cfg: RenderConfig
+                tan_fovx, tan_fovy, width: int, height: int, cfg: RenderConfig,
+                stop_after: str | None = None
                 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Render one frame. Returns ((H, W, 4) image, stats) with the JAX
-    package's stats keys."""
-    rec_f, rec_t, rec_d, info = expand_depth_records(
+    package's stats keys.
+
+    ``stop_after`` cuts the frame after a stage and returns that stage's
+    (out, aux) instead, the JAX package's names and cut points (what
+    ``scripts/torch_profile_stages.py`` times, prefix by prefix):
+
+    - "prep": mean2d (N, 2), {"conic", "colors", "depth"};
+    - "sort1": the splat table, depth-sorted under ``hoist_depth_sort``
+      (else unsorted): fields[0], {"fields" (9, N), "tile_min" (N, 2),
+      "tile_ext" (N, 2), "counts" (N,)};
+    - "cumsum": the inclusive prefix sum of the counts, {"fields"};
+    - "expand": the record fields (9, C), {"tile" (C,), "depth" (C,)};
+    - "sort2": sorted fields[0], {"fields" (9, C), "bounds" (T+1,)}.
+
+    Rows: the port's (9, ·) fields are rows 0-8 of the JAX package's
+    record slab and of its 13-row splat table (mx, my, A, B, C, opacity,
+    r, g, b); the slab's row 9 is "tile" and row 10 "depth"; the table's
+    rows 9-12 are tile_min x, y, tile_ext x and the counts. An unknown
+    name raises ``ValueError``.
+    """
+    stage = expand_depth_records(
         params, view, vp, focal_x, focal_y, tan_fovx, tan_fovy, width, height,
-        cfg)
+        cfg, stop_after=stop_after)
+    if isinstance(stage, Stopped):
+        return tuple(stage)
+    rec_f, rec_t, rec_d, info = stage
     prep, total, total_all = info["prep"], info["total"], info["total_all"]
     n = params["means"].shape[0]
     capacity = rec_f.shape[1]
     t = cfg.num_tiles
 
     sf, bounds = sort_records(rec_f, rec_t, rec_d, width, height, cfg)
+    if stop_after == "sort2":
+        return sf[0], {"fields": sf, "bounds": bounds}
     tiled, _, counts_t = composite_sorted(
         sf, bounds, num_tiles=t,
         tile_ids=torch.arange(t, dtype=torch.int32, device=sf.device),

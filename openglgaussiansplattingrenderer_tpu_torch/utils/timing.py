@@ -13,6 +13,8 @@ already computed.
 
 from __future__ import annotations
 
+import statistics
+import subprocess
 import time
 from typing import Callable, Dict, List, Tuple
 
@@ -85,3 +87,50 @@ def time_stages(stages: List[Tuple[str, Callable]], iters: int = 5,
         fence(r)
         out[name] = (time.perf_counter() - t0) / iters * 1000.0
     return out
+
+
+def require_device(device: str) -> torch.device:
+    """``torch.device(device)``; exits with "no CUDA device" where a CUDA
+    device is asked for and none is there (a script run on the card never
+    carries on quietly on the CPU)."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise SystemExit("FATAL: no CUDA device (pass --device cpu to run on the CPU)")
+    return dev
+
+
+def card_line(device) -> str:
+    """The card's name and power limit as ``nvidia-smi --query-gpu=name,
+    power.limit --format=csv,noheader`` gives them, or "cpu"."""
+    dev = torch.device(device)
+    if dev.type != "cuda":
+        return "cpu"
+    lines = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip().splitlines()
+    return lines[dev.index or 0].strip()
+
+
+def median_ms(fn: Callable, device, iters: int = 20, repeats: int = 3):
+    """(median over ``repeats`` of the mean ms of ``iters`` calls of ``fn``,
+    the last result), after one warm-up call: CUDA events around the calls
+    on a card, the host clock on the CPU."""
+    out = fn()
+    fence(out)
+    times = []
+    for _ in range(repeats):
+        if torch.device(device).type == "cuda":
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            for _ in range(iters):
+                out = fn()
+            end.record()
+            end.synchronize()
+            times.append(start.elapsed_time(end) / iters)
+        else:
+            t0 = time.perf_counter()
+            for _ in range(iters):
+                out = fn()
+            times.append((time.perf_counter() - t0) / iters * 1e3)
+    return statistics.median(times), out
