@@ -10,11 +10,19 @@ Builds the port's CUDA kernels from ``openglgaussiansplattingrenderer_tpu_torch/
 csrc`` (nvcc, at first use), then:
 
 1. prints the card, its power limit, the PyTorch version and the build time;
-2. holds each of the nine kernels against its plain PyTorch version on the
-   card and times both (CUDA events, median), beside the least time the
+2. holds each of the eleven kernels against its plain PyTorch version on
+   the card and times both (CUDA events, median), beside the least time the
    card could take for the same work (``bound_ms``) and, where one PyTorch
    call computes the same function, that call's time (``library_ms``):
-   prefix sum on the flagship frame, bit-equal; the prefix
+   the splat table (kernels 10 and 11, ``csrc/table.cu``) on the uniform
+   and clustered flagship parameters, an SH-3 variant of the uniform one
+   and the gate scene: counts, tile_min, tile_ext, valid and culled
+   exactly equal, every float output bit-equal or within
+   ``TABLE_FLOAT_TOL`` (1e-6) of its row's largest magnitude with the
+   count of elements that are not bit-equal printed, the backward within
+   ``BWD_ROW_TOL`` (1e-4) of each gradient tensor's largest magnitude
+   against autograd of the plain forward on a seeded cotangent and on the
+   frame's own segment-sum output, each also on the device alone; prefix sum on the flagship frame, bit-equal; the prefix
    sum again at 67,108,864 values, where the device and not the host's
    dispatch sets the time, and on one value, as the host's cost of a launch;
    the expansion (bit-equal) and its transpose, the segment sum (within
@@ -45,7 +53,7 @@ csrc`` (nvcc, at first use), then:
    operating point (3,616,103 splats at 1024x512, uniform and clustered
    scenes), with every kernel launch counter reset just before and read
    just after; checks zero overflow, a finite image with coverage, every
-   forward kernel launched, the uniform frame against the all-plain
+   forward kernel launched (the splat table once a frame), the uniform frame against the all-plain
    pipeline, and a small frame against the port's CPU path; then the
    uniform frame through the single-key record sorts (packed + radix and
    hoisted + radix bit-equal to their ``torch.sort`` frames, hoisted, and
@@ -71,7 +79,8 @@ csrc`` (nvcc, at first use), then:
    D-SSIM, per-splat densification statistic) on the uniform flagship scene
    with perturbed colours against its clean render, counters reset just
    before and read just after; checks finite gradients, zero overflow, a
-   falling loss and the training path's five kernels launched; times forward + backward
+   falling loss and the training path's seven kernels launched (the splat
+   table and its backward once a step); times forward + backward
    and the whole step;
 5b. trains with adaptive density control: the same scene and target padded
    to 4,194,304 rows (the padded start's frame bit-equal to the unpadded
@@ -85,7 +94,7 @@ csrc`` (nvcc, at first use), then:
    extent, opacity reset at step 10), counters reset just before and read
    just after: clones and splits, every dead row parked, the alive count
    balanced, zero overflow, a finite loss falling at every step no densify
-   precedes before the reset, kernels 1-5 launched; then the training CLI
+   precedes before the reset, kernels 1-5, 10 and 11 launched; then the training CLI
    (``scripts/torch_train_cli.py``) in-process on the card: the PLY route
    on the uniform flagship (three 1024x512 orbit views, twenty steps,
    ``--densify``) and the COLMAP route on a small workspace, each with its
@@ -141,7 +150,7 @@ csrc`` (nvcc, at first use), then:
    backward a step), the novel-view bench (CAP 1,000,000, GT 500,000, 72
    poses, cut to 1,000 steps in two segments so that its resume runs: a
    finite holdout PSNR) and the holdout eval of its checkpoint (within
-   0.01 dB of the bench's); kernels 1-7 launched in the phase;
+   0.01 dB of the bench's); kernels 1-7, 10 and 11 launched in the phase;
 7. prints a JSON line of phase [3a]'s numbers, one of phases [8] and [9],
    one of phase [10]'s scripts, a JSON line of per-kernel results and,
    last, the device line.
@@ -256,6 +265,23 @@ FP32_FLOP_PER_S = 67e12
 # transmittance update (33).
 FWD_FLOP_VISITED, FWD_FLOP_BLENDED = 12, 9
 BWD_FLOP_VISITED, BWD_FLOP_BLENDED = 12, 33
+# The splat table (kernels 10, 11) against its plain version: float outputs
+# bit-equal or within this share of their row's largest magnitude (the SH
+# colours go through torch reductions and libm calls whose rounding the
+# kernel copies but cannot be proven to share); integers and masks exactly
+# equal.
+TABLE_FLOAT_TOL = 1e-6
+# the SH-3 variant of the uniform flagship: sh_rest ~ N(0, 0.2^2) from a seed
+# (the scene's own coefficients are zero; captured scenes' f_rest lie
+# within a few tenths)
+TABLE_SH_SEED, TABLE_SH_SCALE = 13, 0.2
+# Float operations a splat of the table kernels, counted from
+# csrc/table.cu with sqrt, division and log as one: the forward on the cov6
+# route (projection, EWA covariance, conic, radius, tight rect, tile rect),
+# + the covariance from scales and quats, + SH colours at degree 3; the
+# backward (the forward's recomputation and the chain rule) likewise.
+TABLE_FWD_FLOP, TABLE_COV_FLOP, TABLE_SH_FLOP = 235, 78, 256
+TABLE_BWD_FLOP, TABLE_COV_BWD_FLOP, TABLE_BWD_SH_FLOP = 430, 211, 480
 
 PKG = "openglgaussiansplattingrenderer_tpu_torch"
 TPU_PKG = "openglgaussiansplattingrenderer_tpu"
@@ -273,7 +299,13 @@ KERNELS = {
                       f"{TPU_PKG}/ops/pallas/radix_sort.py:133"),
     "bucketer_level": (f"{PKG}/csrc/bucketer_probe.cu", "scripts/bucketer_probe.py:68"),
     "probe_affine": (f"{PKG}/csrc/probe_affine.cu", "scripts/cache_key_probe.py:34"),
+    # the port's own: no pallas_call; XLA fuses the jitted preprocess there
+    "splat_table": (f"{PKG}/csrc/table.cu", f"{TPU_PKG}/ops/projection.py:42"),
+    "splat_table_bwd": (f"{PKG}/csrc/table.cu", f"{TPU_PKG}/ops/projection.py:42"),
 }
+# the kernels every frame launches, and those a forward + backward adds
+FRAME_KERNELS = ("splat_table", "cumsum", "expand", "composite")
+STEP_KERNELS = FRAME_KERNELS + ("segsum", "composite_bwd", "splat_table_bwd")
 
 
 def log(msg: str) -> None:
@@ -444,13 +476,15 @@ def kernel_wrappers():
     from openglgaussiansplattingrenderer_tpu_torch.ops.kernels import radix_sort as rx
     from openglgaussiansplattingrenderer_tpu_torch.ops.kernels import records as kr
     from openglgaussiansplattingrenderer_tpu_torch.ops.kernels import scan as ks
+    from openglgaussiansplattingrenderer_tpu_torch.ops.kernels import table as kt
     from openglgaussiansplattingrenderer_tpu_torch.probes import bucketer_probe, cache_key_probe
 
     return {"cumsum": ks.cumsum, "expand": kr.expand, "segsum": kr.segsum,
             "composite": kc.composite, "composite_bwd": kc.composite_bwd,
             "radix_counts": rx.radix_counts, "radix_scatter": rx.radix_scatter,
             "bucketer_level": bucketer_probe.bucketer_level,
-            "probe_affine": cache_key_probe.probe_affine}
+            "probe_affine": cache_key_probe.probe_affine,
+            "splat_table": kt.splat_table, "splat_table_bwd": kt.splat_table_bwd}
 
 
 def reset_launches() -> None:
@@ -672,6 +706,150 @@ def check_expand_segsum(name, frame):
         f"plain {pms:.4f} ms, index_add_ {lms:.4f} ms, bound "
         f"{segsum['bound_ms']:.4f} ms")
     return expand, segsum
+
+
+def table_bound(inputs, out, sh_row: int, backward: bool = False) -> dict:
+    """``bound`` of the splat table kernels from their arguments: each input
+    read once and each output written once (the backward reads the inputs
+    but the colours, and the nine cotangents, and writes one gradient an
+    input), and the float operations counted from ``csrc/table.cu``."""
+    n = inputs["means"].shape[0]
+    read = sum(t.numel() * t.element_size() for k, t in inputs.items()
+               if t is not None and not (backward and k in ("colors", "shift2d")))
+    quats = inputs["cov6"] is None
+    if backward:
+        # + the cotangents read; the gradients written: the inputs' bytes and
+        # the colours'
+        return bound(2 * read + 36 * n + 12 * n,
+                     n * (TABLE_BWD_FLOP + TABLE_COV_BWD_FLOP * quats
+                          + TABLE_BWD_SH_FLOP * bool(sh_row)))
+    written = sum(t.numel() * t.element_size() for t in out if t is not None)
+    return bound(read + written, n * (TABLE_FWD_FLOP + TABLE_COV_FLOP * quats
+                                      + TABLE_SH_FLOP * bool(sh_row)))
+
+
+def check_splat_table(name, frame):
+    """Kernels 10 and 11 on the frame's own parameters against their plain
+    versions: counts, tile_min, tile_ext, valid and culled equal; every
+    float output bit-equal or within ``TABLE_FLOAT_TOL`` of its row's
+    largest magnitude, with the count of elements that are not bit-equal;
+    the backward within ``BWD_ROW_TOL`` of each gradient tensor's largest
+    magnitude against autograd of the plain forward (and beside its plain
+    analytic version), on a seeded cotangent and on the frame's own
+    segment-sum output. Each timed between CUDA events and on the device
+    alone. Returns the two kernels' result rows."""
+    import torch
+
+    from openglgaussiansplattingrenderer_tpu_torch.ops import fastpath
+    from openglgaussiansplattingrenderer_tpu_torch.ops.kernels import composite as kc
+    from openglgaussiansplattingrenderer_tpu_torch.ops.kernels import records as kr
+    from openglgaussiansplattingrenderer_tpu_torch.ops.kernels import scan as ks
+    from openglgaussiansplattingrenderer_tpu_torch.ops.kernels import table as kt
+
+    def us(v):
+        return "not measured" if v is None else f"{v:.2f}"
+
+    view, vp = frame.args[0], frame.args[1]
+    spec = (*frame.args[2:], frame.cfg)
+    inputs = kt.table_inputs(frame.params, frame.cfg)
+    sh_row = 0 if inputs["sh_rest"] is None else inputs["sh_rest"].shape[1]
+    n = inputs["means"].shape[0]
+    names = ("fields", "mean2d", "tile_min", "tile_ext", "counts", "depth",
+             "raw_depth", "radius", "valid", "culled")
+    got = kt.splat_table_fwd(inputs, view, vp, spec)
+    ref = kt.splat_table_fwd_plain(inputs, view, vp, spec)
+    bits = {}
+    worst = max_abs = 0.0
+    for what, a, b in zip(names, got, ref):
+        if a is None:
+            continue
+        if a.dtype in (torch.int32, torch.bool):
+            bad = torch.nonzero((a != b).reshape(n, -1).any(dim=1)).squeeze(1)
+            if bad.numel():
+                k = bad[:8]
+                log(f"[2] splat_table {name}: {what} differs at {bad.numel()} splats, "
+                    f"first {k.tolist()}: kernel {a[k].tolist()}, plain {b[k].tolist()}; "
+                    f"fields there kernel {got[0][:, k].t().tolist()}, plain "
+                    f"{ref[0][:, k].t().tolist()}")
+            assert not bad.numel(), f"{name}: splat_table {what} differs from the plain version"
+            continue
+        rows = a.reshape(a.shape[0], -1) if what == "fields" else a.reshape(1, -1)
+        want = b.reshape(rows.shape)
+        same = (rows == want) | (torch.isnan(rows) & torch.isnan(want))
+        bits[what] = int((~same).sum())
+        finite = torch.isfinite(want)
+        assert torch.equal(torch.isfinite(rows), finite), f"{name}: {what} finiteness differs"
+        scale = torch.where(finite, want.abs(), 0).amax(dim=1, keepdim=True).clamp_min(1e-30)
+        diff = torch.where(finite, (rows - want).abs(), 0)
+        max_abs = max(max_abs, float(diff.max()))
+        worst = max(worst, float((diff / scale).max()))
+    assert worst <= TABLE_FLOAT_TOL, (
+        f"{name}: splat_table floats vs plain: {worst:.3e} of the row's scale")
+    ms = cuda_ms(lambda: kt.splat_table_fwd(inputs, view, vp, spec))
+    dev_us = device_us(lambda: kt.splat_table_fwd(inputs, view, vp, spec), calls=20)
+    pms = cuda_ms(lambda: kt.splat_table_fwd_plain(inputs, view, vp, spec))
+    fwd = dict(max_abs_err=max_abs, max_row_rel_err=worst, not_bit_equal=bits,
+        ms=ms, device_us=dev_us, plain_ms=pms, library_ms=None, splats=n,
+        sh_row=sh_row, **table_bound(inputs, got, sh_row))
+    log(f"[2] splat_table {name}: {n} splats, sh_row {sh_row}: integers equal; floats "
+        f"{worst:.3e} of the row's scale, not bit-equal {bits}; kernel {ms:.4f} ms, "
+        f"on the device alone {us(dev_us)} us, plain {pms:.4f} ms, bound "
+        f"{fwd['bound_ms']:.4f} ms ({fwd['bound_by']})")
+    del got, ref
+
+    # the backward: a seeded cotangent, then the frame's own segsum output
+    diff_keys = [k for k in kt.INPUTS[:7] if inputs[k] is not None]
+    gen = torch.Generator(device=view.device).manual_seed(12)
+    cots = {"seeded": torch.randn((kr.NUM_FIELDS, n), generator=gen, device=view.device)}
+    table, prep = kt.splat_table(frame.params, *frame.args, frame.cfg)
+    f = table[0].detach().requires_grad_(True)
+    kw = fastpath.expand_kwargs(n, *frame.size, frame.cfg)
+    with torch.enable_grad():
+        rec = kr.expand(f, *table[1:], ks.cumsum(prep["counts"]), **kw)
+        sf, bounds = fastpath.sort_records(*rec, *frame.size, frame.cfg)
+        ox, oy, ckw = frame.composite_inputs(sf)
+        loss = mean_sq_loss(frame.image(kc.composite(sf, bounds, ox, oy, **ckw)))
+        cots["segsum"] = torch.autograd.grad(loss, f)[0]
+    del table, prep, rec, sf, f
+    bwd = {}
+    for what, g in cots.items():
+        d_got = kt.splat_table_bwd(inputs, view, vp, spec, g)
+        d_plain = kt.splat_table_bwd_plain(inputs, view, vp, spec, g)
+        leaves = {k: inputs[k].detach().requires_grad_(True) for k in diff_keys}
+        with torch.enable_grad():
+            fields = kt.splat_table_fwd_plain(dict(inputs, **leaves), view, vp, spec)[0]
+            auto = dict(zip(diff_keys, torch.autograd.grad(
+                fields, list(leaves.values()), g, allow_unused=True)))
+        del fields, leaves
+        errs, plain_errs, abs_err = {}, {}, 0.0
+        for k in diff_keys:
+            want = auto[k] if auto[k] is not None else torch.zeros_like(inputs[k])
+            live = (g != 0).any(dim=0)        # autograd may give 0 * inf there
+            want = torch.where(live.reshape((-1,) + (1,) * (want.dim() - 1)), want, 0)
+            scale = float(want.abs().max()) or 1e-30
+            assert bool(torch.isfinite(d_got[k]).all()), f"{name}: {k} gradient not finite"
+            abs_err = max(abs_err, float((d_got[k] - want).abs().max()))
+            errs[k] = float((d_got[k] - want).abs().max()) / scale
+            plain_errs[k] = float((d_plain[k] - want).abs().max()) / scale
+        log(f"[2] splat_table_bwd {name}, {what} cotangent: of each tensor's largest "
+            f"gradient, kernel vs autograd {errs}; plain analytic vs autograd "
+            f"{plain_errs}")
+        assert max(errs.values()) <= BWD_ROW_TOL, (
+            f"{name}: splat_table_bwd vs autograd ({what}): {errs}")
+        bwd[what] = dict(max_abs_err=abs_err, max_rel_err=max(errs.values()), per_tensor=errs,
+                         plain_max_rel_err=max(plain_errs.values()))
+        del d_got, d_plain, auto
+    g = cots["segsum"]
+    ms = cuda_ms(lambda: kt.splat_table_bwd(inputs, view, vp, spec, g))
+    dev_us = device_us(lambda: kt.splat_table_bwd(inputs, view, vp, spec, g), calls=20)
+    pms = cuda_ms(lambda: kt.splat_table_bwd_plain(inputs, view, vp, spec, g))
+    row = dict(max_abs_err=max(v["max_abs_err"] for v in bwd.values()), max_row_rel_err=max(v["max_rel_err"] for v in bwd.values()),
+               cotangents=bwd, ms=ms, device_us=dev_us, plain_ms=pms, library_ms=None,
+               splats=n, sh_row=sh_row, **table_bound(inputs, None, sh_row, backward=True))
+    log(f"[2] splat_table_bwd {name}: kernel {ms:.4f} ms, on the device alone "
+        f"{us(dev_us)} us, plain analytic {pms:.4f} ms, bound {row['bound_ms']:.4f} ms "
+        f"({row['bound_by']})")
+    return fwd, row
 
 
 def check_radix(frame, results):
@@ -1093,7 +1271,7 @@ def check_oracle(gate, flag):
         f_img_k, f_st = flag.render()
     torch.cuda.synchronize()
     launches = read_launches()
-    for k in ("cumsum", "expand", "segsum", "composite", "composite_bwd"):
+    for k in STEP_KERNELS:
         assert launches[k] > 0, f"{k} kernel never launched in the oracle phase"
 
     # ---- the gate scene's frame
@@ -1431,8 +1609,10 @@ def check_training(frame):
         end.params = params_from_raw(state.raw)
         overflow = int(end.render()[1]["overflow"])
     assert overflow == 0, f"training: overflow {overflow} after the steps"
-    for k in ("cumsum", "expand", "segsum", "composite", "composite_bwd"):
+    for k in STEP_KERNELS:
         assert launches[k] > 0, f"{k} kernel never launched on the training path"
+    for k in ("splat_table", "splat_table_bwd"):
+        assert launches[k] == TRAIN_STEPS, f"{k}: {launches[k]} launches in {TRAIN_STEPS} steps"
     log(f"[5] training, {n} splats at {w}x{h}, {TRAIN_STEPS} steps of "
         f"make_train_step (lambda_dssim {tc.lambda_dssim}, grad norms): loss "
         + " ".join(f"{v:.6f}" for v in loss_hist)
@@ -1628,7 +1808,7 @@ def check_densify(frame, cam, unpadded_step_ms):
         assert e["overflow_after"] == 0, e
     assert end_overflow == 0, f"overflow {end_overflow} at the end"
     assert int(alive_end.sum()) == hist[-1]["alive"]
-    for k in ("cumsum", "expand", "segsum", "composite", "composite_bwd"):
+    for k in STEP_KERNELS:
         assert launches[k] > 0, f"{k} kernel never launched on the densify path"
     return launches
 
@@ -1677,7 +1857,7 @@ def check_cli(ply, device):
             + " ".join(f"{e['step']}:{e['loss']:.5f}" for e in steps)
             + f"; {hist['splats']} splats written; view-0 PSNR {psnr:.3f} dB; "
             f"launches {out[name]}")
-        for k in ("cumsum", "expand", "segsum", "composite", "composite_bwd"):
+        for k in STEP_KERNELS:
             assert out[name][k] > 0, f"{k} kernel never launched by the {name} route"
 
     with tempfile.TemporaryDirectory() as d:
@@ -1928,7 +2108,7 @@ def check_viewer(flag_ply, gate_scene, dev):
     assert moved == interactive.encode_frame(ref.render_camera_u8(host), "PNG"), (
         "/frame after the keys is not render_camera_u8 at the moved pose")
     assert stats["stream_frames"] == STREAM_FRAMES and stats["stream_fps"] > 0, stats
-    for k in ("cumsum", "expand", "composite"):
+    for k in FRAME_KERNELS:
         assert launches["viewer"][k] > 0, f"{k} kernel never launched by the viewer"
 
     def render_only():
@@ -2064,7 +2244,9 @@ def check_multi_device(scenes, gate, dev, mesh):
                 f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
             if name == "uniform":
                 assert launches["sharded"]["composite"] == shards, launches["sharded"]
-                for k in ("cumsum", "expand", "composite"):
+                # one splat table a shard, as one a frame on one device
+                assert launches["sharded"]["splat_table"] == shards, launches["sharded"]
+                for k in FRAME_KERNELS:
                     assert launches["sharded"][k] > 0, f"{k} never launched by the sharded frame"
                 img2, st2 = sharded(f, padded, 2.0)
                 with warnings.catch_warnings(record=True) as wl:
@@ -2157,7 +2339,7 @@ def check_multi_device(scenes, gate, dev, mesh):
     assert int(st["overflow"]) == 0 and abs(float(loss_step) - loss_s) <= 1e-6
     for k, v in sh.gather_shards(new_raw, dev).items():
         assert bool(torch.isfinite(v).all()), f"sharded train step: non-finite {k}"
-    for k in ("cumsum", "expand", "segsum", "composite", "composite_bwd"):
+    for k in STEP_KERNELS:
         assert launches["sharded_train"][k] > 0, f"{k} never launched by the sharded step"
     del new_raw, raw_shards
     nums["sharded_grads"] = dict(loss_sharded=loss_s, loss_single=loss_1,
@@ -2265,7 +2447,7 @@ def check_multi_device(scenes, gate, dev, mesh):
     launches["dp"] = read_launches()
     assert all(np.isfinite(h["loss"]) for h in hist), hist
     assert int(alive.sum()) == hist[-1]["alive"]
-    for k in ("cumsum", "expand", "segsum", "composite", "composite_bwd"):
+    for k in STEP_KERNELS:
         assert launches["dp"][k] > 0, f"{k} never launched by fit_scene_dp"
     nums["fit_scene_dp"] = dict(seconds=fit_s, losses=[h["loss"] for h in hist],
                                 alive=[h["alive"] for h in hist],
@@ -2315,7 +2497,7 @@ def check_multi_device(scenes, gate, dev, mesh):
         warnings.simplefilter("always")
         ov2 = fs.warn_on_sharded_overflow({"overflow": over2d}, float(M2_DS), M2_DS)
     assert ov2 == 0 and not wl, f"2-D step: overflow {ov2} at exch_factor {M2_DS}"
-    for k in ("cumsum", "expand", "segsum", "composite", "composite_bwd"):
+    for k in STEP_KERNELS:
         assert launches["mesh2d"][k] > 0, f"{k} never launched by the 2-D step"
     # against two single-view make_train_step steps: Adam's first moment
     # after one step is (1 - b1) times the gradient it used
@@ -2413,7 +2595,7 @@ def check_multi_device(scenes, gate, dev, mesh):
     assert all(np.isfinite(h["loss"]) for h in hist2 + hist1), (hist2, hist1)
     assert int(alive2.sum()) == hist2[-1]["alive"]
     assert all(h["overflow"] == 0 for h in hist2 + hist1), (hist2, hist1)
-    for k in ("cumsum", "expand", "segsum", "composite", "composite_bwd"):
+    for k in STEP_KERNELS:
         assert launches["mesh2d_fit"][k] > 0, f"{k} never launched by fit_scene_2d"
     assert torch.equal(alive2, alive1), "2-D fit: alive mask differs from the 1x1 fit's"
     loss_apart = max(abs(h2["loss"] - h1["loss"]) / h1["loss"] for h2, h1 in zip(hist2, hist1))
@@ -2535,9 +2717,9 @@ def check_process_group(f, start, target, dev, cards):
                              for k in reports[0]["frame_launches"]},
                 "pg_step": {k: sum(r["step_launches"][k] for r in reports)
                             for k in reports[0]["step_launches"]}}
-    for k in ("cumsum", "expand", "composite"):
+    for k in FRAME_KERNELS:
         assert launches["pg_frame"][k] > 0, f"{k} never launched by the process-group frame"
-    for k in ("cumsum", "expand", "segsum", "composite", "composite_bwd"):
+    for k in STEP_KERNELS:
         assert launches["pg_step"][k] > 0, f"{k} never launched by the process-group step"
     nums = dict(ranks=world, backend=backend, rows=rows, bit_equal=True, worst_share=share,
                 spawn_wall_s=wall_s,
@@ -2841,8 +3023,7 @@ def check_scripts(dev):
         f"{gap:.3e} dB from the bench's")
     assert ev["step"] == NV_STEPS and gap <= NV_EVAL_TOL_DB, (ev, out)
 
-    for k in ("cumsum", "expand", "segsum", "composite", "composite_bwd",
-              "radix_counts", "radix_scatter"):
+    for k in STEP_KERNELS + ("radix_counts", "radix_scatter"):
         assert sum(v[k] for v in launches.values()) > 0, (
             f"{k} kernel never launched in phase [10]")
     return launches, outs
@@ -2934,6 +3115,22 @@ def main(argv=None) -> int:
     # ---- 2. kernels against their plain versions --------------------------
     results = {}
     with torch.no_grad():
+        # kernels 10 and 11, the splat table, on the uniform frame's
+        # parameters, the main path's; the clustered frame's, an SH-3
+        # variant of the uniform one (sh_rest drawn from TABLE_SH_SEED) and
+        # the gate scene's ride along
+        fwd, bwd = check_splat_table("uniform flagship", frames["uniform"])
+        sh3 = frames["uniform"].with_cfg(
+            dataclasses.replace(frames["uniform"].cfg, sh_degree=3))
+        gen = torch.Generator(device=dev).manual_seed(TABLE_SH_SEED)
+        sh3.params = dict(frames["uniform"].params, sh_rest=TABLE_SH_SCALE * torch.randn(
+            (FLAG_SPLATS, 45), generator=gen, device=dev))
+        rides = {"clustered": check_splat_table("clustered flagship", frames["clustered"]),
+                 "sh3": check_splat_table("uniform flagship SH-3", sh3),
+                 "gate_scene": check_splat_table(f"gate scene ({GATE_SPLATS} splats)", gate)}
+        del sh3
+        results["splat_table"] = dict(fwd, **{k: v[0] for k, v in rides.items()})
+        results["splat_table_bwd"] = dict(bwd, **{k: v[1] for k, v in rides.items()})
         check_scan(frames["uniform"], results)
         # kernels 2 and 3 on the uniform frame's table, the main path's; the
         # clustered frame's and (phase 6) the 1080p scene's ride along
@@ -2961,7 +3158,12 @@ def main(argv=None) -> int:
         check_frame("clustered pair", frames["clustered"])
         render_launches = read_launches()
         log(f"[3] kernel launches on the render path: {render_launches}")
-        for k in ("cumsum", "expand", "composite"):
+        reset_launches()
+        frames["uniform"].render()
+        one = read_launches()
+        assert one["splat_table"] == 1 and one["splat_table_bwd"] == 0, (
+            f"one frame launched the splat table kernels {one}")
+        for k in FRAME_KERNELS:
             assert render_launches[k] > 0, (
                 f"{k} kernel never launched on the render path")
         for k in ("radix_counts", "radix_scatter"):

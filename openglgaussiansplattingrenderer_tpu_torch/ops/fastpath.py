@@ -3,7 +3,7 @@
 Counterpart of ``openglgaussiansplattingrenderer_tpu/ops/fastpath.py``.
 Stage map, kernels in ``ops/kernels`` (forward / backward):
 
-  preprocess (torch elementwise / autograd)               [N]
+  preprocess + splat table        (kernel: splat_table / splat_table_bwd) [N]
     -> (hoist_depth_sort only) stable depth sort of the
        splat table               (torch.sort / one scatter)         [N]
     -> prefix sum of duplicate counts    (kernel: scan / integers, none)
@@ -38,7 +38,6 @@ from typing import Dict, NamedTuple, Tuple
 import torch
 
 from openglgaussiansplattingrenderer_tpu_torch.config import RenderConfig
-from openglgaussiansplattingrenderer_tpu_torch.ops import projection
 from openglgaussiansplattingrenderer_tpu_torch.ops.compositing import (
     assemble_image,
     padded_dims,
@@ -47,7 +46,7 @@ from openglgaussiansplattingrenderer_tpu_torch.ops.kernels import composite as k
 from openglgaussiansplattingrenderer_tpu_torch.ops.kernels import radix_sort as rx
 from openglgaussiansplattingrenderer_tpu_torch.ops.kernels import records as kr
 from openglgaussiansplattingrenderer_tpu_torch.ops.kernels import scan as ks
-from openglgaussiansplattingrenderer_tpu_torch.ops.transforms import build_covariance
+from openglgaussiansplattingrenderer_tpu_torch.ops.kernels import table as kt
 
 # The JAX package rounds capacity to whole expand grid steps (512-record
 # sub-blocks x 8); keeping its rounding keeps num_records and overflow equal.
@@ -94,35 +93,9 @@ def composite_sorted(sorted_fields: torch.Tensor, bounds: torch.Tensor, *,
     return tiled, bounds, bounds[1:] - bounds[:-1]
 
 
-def splat_table(params: Dict[str, torch.Tensor], view, vp, focal_x, focal_y,
-                tan_fovx, tan_fovy, width: int, height: int, cfg: RenderConfig):
-    """Preprocess and the per-splat inputs of the expand.
-
-    Returns ((fields (9, N), tile_min (N, 2), tile_ext (N, 2), depth (N,)),
-    prep): the record fields mx, my, A, B, C, op, r, g, b, the splat's
-    tile rect, and its depth (0 where invalid or non-finite).
-    """
-    cov6 = params.get("cov6")
-    if cov6 is None:
-        cov6 = build_covariance(params["scales"], params["quats"])
-    prep = projection.preprocess(
-        params["means"], cov6, params["opacities"], view, vp,
-        width, height, focal_x, focal_y, tan_fovx, tan_fovy, cfg)
-    from openglgaussiansplattingrenderer_tpu_torch.render import effective_colors
-
-    colors = effective_colors(params, view, cfg)
-    mean2d = prep["mean2d"]
-    if "shift2d" in params:
-        mean2d = mean2d + params["shift2d"]
-    fields = torch.stack([
-        mean2d[:, 0], mean2d[:, 1],
-        prep["conic"][:, 0], prep["conic"][:, 1], prep["conic"][:, 2],
-        prep["opacity"], colors[:, 0], colors[:, 1], colors[:, 2]])
-    zero = torch.zeros((), dtype=torch.float32, device=mean2d.device)
-    depth = torch.where(prep["valid"], prep["depth"], zero)
-    depth = torch.where(torch.isfinite(depth), depth, zero).detach()
-    return (fields.contiguous(), prep["tile_min"].contiguous(),
-            prep["tile_ext"].contiguous(), depth.contiguous()), prep
+# Preprocess and the per-splat inputs of the expand: kernel splat_table (and
+# its backward) on CUDA tensors, the plain version on CPU tensors.
+splat_table = kt.splat_table
 
 
 def depth_sort_table(table, prep):

@@ -50,6 +50,10 @@ SIGNATURES = {
     "gs_bucketer_chunk": [],
     "gs_bucketer_level": [_P, _L, _I, _F, _P, _P],
     "gs_probe_affine": [_P, _P, _L, _P],
+    "gs_table_args_size": [],
+    "gs_table_sh_row_max": [],
+    "gs_splat_table": [_P] * 22 + [_L, _P],
+    "gs_splat_table_bwd": [_P] * 19 + [_L, _P],
 }
 
 # filled by the build: seconds the nvcc run took (0.0 when the library was

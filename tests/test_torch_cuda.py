@@ -24,7 +24,10 @@ sort paths of the frame, the two probe kernels, and the expansion and the segmen
 ``test_torch_records_partition.py`` (runs of empty splats longer than
 several blocks' share, a splat over three blocks, ``total == capacity``,
 overflow, one splat, a capacity that is not a multiple of 4, inputs off the
-16-byte grid).
+16-byte grid); and the splat table's two kernels on splats placed behind
+the camera, off-screen, past the fov clamp and at zero scale, at splat
+counts that leave a warp or a block ragged, every SH degree and row
+length, both covariance routes, with a shift and without.
 """
 
 import dataclasses
@@ -40,6 +43,8 @@ from openglgaussiansplattingrenderer_tpu_torch.ops.kernels import composite as k
 from openglgaussiansplattingrenderer_tpu_torch.ops.kernels import radix_sort as rx
 from openglgaussiansplattingrenderer_tpu_torch.ops.kernels import records as kr
 from openglgaussiansplattingrenderer_tpu_torch.ops.kernels import scan as ks
+from openglgaussiansplattingrenderer_tpu_torch.ops.kernels import table as kt
+from openglgaussiansplattingrenderer_tpu_torch.ops.transforms import build_covariance
 from openglgaussiansplattingrenderer_tpu_torch.probes import bucketer_probe, cache_key_probe
 from openglgaussiansplattingrenderer_tpu_torch.render import render_arrays, render_stats
 from openglgaussiansplattingrenderer_tpu_torch.train import trainer
@@ -714,3 +719,91 @@ def test_probe_affine_on_views_off_the_16_byte_grid(card, offset, n):
     assert (x.data_ptr() % 16 == 0) == (offset == 4)
     assert torch.equal(cache_key_probe.probe_affine(x),
                        cache_key_probe.probe_affine_plain(x))
+
+
+def _table_scene(n, seed=0):
+    """Splats around the origin before a camera at z = -4, the last few
+    placed behind it, off-screen, past the fov clamp and at zero scale."""
+    rng = np.random.default_rng(seed)
+    a = port.camera_args(port.Camera(0.0, 0.0, -4.0, width=64, height=48))
+    means = rng.uniform(-1.5, 1.5, (n, 3))
+    special = np.array([[0.0, 0.2, -6.0], [9.0, 0.0, 0.0], [0.0, 40.0, 1.0],
+                        [0.1, -0.1, 0.0]])[:n]
+    means[n - len(special):] = special
+    scales = np.exp(rng.uniform(-3.5, -1.5, (n, 3)))
+    scales[-1:] = 0.0
+    quats = rng.normal(size=(n, 4))
+    quats /= np.maximum(np.linalg.norm(quats, axis=1, keepdims=True), 1e-6)
+    scene = dict(means=means, scales=scales, quats=quats, opacities=rng.uniform(0.02, 0.95, n),
+                 colors=rng.uniform(0, 255, (n, 3)), sh_rest=rng.normal(0, 0.3, (n, 45)),
+                 shift2d=rng.normal(0, 0.5, (n, 2)))
+    args = (a["view"], a["vp"], a["focal_x"], a["focal_y"], a["tan_fovx"], a["tan_fovy"],
+            64, 48)
+    return {k: torch.from_numpy(v.astype(np.float32)) for k, v in scene.items()}, args
+
+
+@pytest.mark.parametrize("n,sh,row,cov6,shift,opts", [
+    (1, 0, 45, False, False, {}),
+    (37, 3, 45, False, True, {}),
+    (129, 1, 9, True, False, dict(antialiased=True)),
+    (1000, 2, 24, False, True, dict(tight_rect=False, int_tile_size=True)),
+    (4099, 3, 45, True, True, dict(antialiased=True, dilation=0.0, grid_x=12, grid_y=10)),
+])
+def test_splat_table_kernels_match_plain(card, n, sh, row, cov6, shift, opts):
+    scene, args = _table_scene(n, seed=n)
+    scene["sh_rest"] = scene["sh_rest"][:, :row].contiguous()
+    if cov6:
+        scene["cov6"] = build_covariance(scene.pop("scales"), scene.pop("quats"))
+    if not shift:
+        del scene["shift2d"]
+    cfg = port.RenderConfig(sh_degree=sh, **opts)
+    view, vp = (torch.as_tensor(m, device=card) for m in args[:2])
+    spec = (*args[2:], cfg)
+    on_card = kt.table_inputs({k: v.to(card) for k, v in scene.items()}, cfg)
+    before = (kt.splat_table.launches, kt.splat_table_bwd.launches)
+    got = kt.splat_table_fwd(on_card, view, vp, spec)
+    want = kt.splat_table_fwd_plain(on_card, view, vp, spec)
+    for a, b in zip(got, want):
+        if a is None:
+            assert b is None
+        elif a.dtype in (torch.int32, torch.bool):
+            assert torch.equal(a, b)
+        else:
+            assert torch.allclose(a, b, rtol=1e-6, atol=1e-5, equal_nan=True)
+    g = torch.randn((9, n), generator=torch.Generator().manual_seed(n)).to(card)
+    g[:, n // 2] = 0.0                                       # a splat with no cotangent
+    gm = torch.randn((n, 2), generator=torch.Generator().manual_seed(1)).to(card)
+    gm[n // 2] = 0.0
+    d_got = kt.splat_table_bwd(on_card, view, vp, spec, g, gm)
+    d_want = kt.splat_table_bwd_plain(on_card, view, vp, spec, g, gm)
+    assert (kt.splat_table.launches, kt.splat_table_bwd.launches) == (before[0] + 1,
+                                                                      before[1] + 1)
+    assert set(d_got) == set(d_want)
+    for k, want_k in d_want.items():
+        assert bool(torch.isfinite(d_got[k]).all()), k
+        assert not d_got[k][n // 2].any(), k
+        scale = float(want_k.abs().max()) or 1.0
+        assert float((d_got[k] - want_k).abs().max()) <= 1e-4 * scale, k
+
+
+def test_splat_table_on_no_splats_and_through_autograd(card):
+    scene, args = _table_scene(300, seed=2)
+    cfg = port.RenderConfig(sh_degree=3)
+    view, vp = (torch.as_tensor(m, device=card) for m in args[:2])
+    empty = {k: v[:0].to(card) for k, v in scene.items()}
+    (fields, tile_min, _, _), prep = kt.splat_table(empty, view, vp, *args[2:], cfg)
+    assert fields.shape == (9, 0) and tile_min.shape == (0, 2) and prep["valid"].numel() == 0
+    leaves = {k: v.to(card).requires_grad_(True) for k, v in scene.items()}
+    (fields, _, _, _), prep = kt.splat_table(leaves, view, vp, *args[2:], cfg)
+    g = torch.randn(fields.shape, generator=torch.Generator().manual_seed(0)).to(card)
+    got = torch.autograd.grad((fields, prep["mean2d"]), list(leaves.values()),
+                              (g, torch.ones_like(prep["mean2d"])))
+    plain = {k: v.detach().requires_grad_(True) for k, v in leaves.items()}
+    (f_p, _, _, _), prep_p = kt.splat_table_plain(plain, view, vp, *args[2:], cfg)
+    want = torch.autograd.grad((f_p, prep_p["mean2d"]), list(plain.values()),
+                               (g, torch.ones_like(prep_p["mean2d"])))
+    for k, a, b in zip(leaves, got, want):
+        assert float((a - b).abs().max()) <= 1e-4 * float(b.abs().max()), k
+    with pytest.raises(NotImplementedError, match="no backward"):
+        (fields, _, _, _), _ = kt.splat_table(leaves, view, vp, *args[2:], cfg)
+        torch.autograd.grad(fields, list(leaves.values()), g, create_graph=True)

@@ -34,6 +34,7 @@ from openglgaussiansplattingrenderer_tpu_torch.ops.kernels import build
 from openglgaussiansplattingrenderer_tpu_torch.ops.kernels import composite as kc
 from openglgaussiansplattingrenderer_tpu_torch.ops.kernels import records as kr
 from openglgaussiansplattingrenderer_tpu_torch.ops.kernels import scan as ks
+from openglgaussiansplattingrenderer_tpu_torch.ops.kernels import table as kt
 from openglgaussiansplattingrenderer_tpu_torch.render import (
     autotune_capacity,
     camera_args,
@@ -403,9 +404,25 @@ def test_wrappers_take_the_plain_version_only_on_cpu():
                   torch.zeros((3, 2), dtype=torch.int32), torch.zeros(3),
                   torch.zeros(4, dtype=torch.int32), capacity=8, gx=2,
                   num_tiles=4, pw=2, ph=2, alpha_min=0.1)
-    before = (ks.cumsum.launches, kr.expand.launches, kc.composite.launches)
+    cfg = port.RenderConfig()
+    cam = (2.0, 2.0, -0.5, -0.5, 8, 8, cfg)
+    eye = torch.eye(4, device="meta")
+    table_in = {k: None for k in kt.INPUTS}
+    table_in.update(means=torch.zeros((3, 3), device="meta"),
+                    cov6=torch.zeros((3, 6), device="meta"),
+                    opacities=torch.zeros(3, device="meta"),
+                    colors=torch.zeros((3, 3), device="meta"))
+    with pytest.raises(ValueError, match="CPU or all on one CUDA device"):
+        kt.splat_table_fwd(table_in, eye, eye, cam)
+    with pytest.raises(ValueError, match="CPU or all on one CUDA device"):
+        kt.splat_table_bwd(table_in, eye, eye, cam, torch.zeros((9, 3), device="meta"))
+    counters = (ks.cumsum, kr.expand, kc.composite, kt.splat_table, kt.splat_table_bwd)
+    before = [f.launches for f in counters]
     ks.cumsum(torch.ones(5, dtype=torch.int32))
-    assert (ks.cumsum.launches, kr.expand.launches, kc.composite.launches) == before
+    cpu_in = {k: None if v is None else torch.rand(v.shape) for k, v in table_in.items()}
+    kt.splat_table_bwd(cpu_in, torch.eye(4), torch.eye(4), cam,
+                       kt.splat_table_fwd(cpu_in, torch.eye(4), torch.eye(4), cam)[0])
+    assert [f.launches for f in counters] == before
 
 
 def test_config_and_camera_copies_match_jax():
