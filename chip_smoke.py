@@ -10,8 +10,8 @@ Builds the port's CUDA kernels from ``openglgaussiansplattingrenderer_tpu_torch/
 csrc`` (nvcc, at first use), then:
 
 1. prints the card, its power limit, the PyTorch version and the build time;
-2. holds each of the eleven kernels against its plain PyTorch version on
-   the card and times both (CUDA events, median), beside the least time the
+2. holds each of the eleven kernels and the record sort stage against
+   their plain PyTorch versions on the card and times both (CUDA events, median), beside the least time the
    card could take for the same work (``bound_ms``) and, where one PyTorch
    call computes the same function, that call's time (``library_ms``):
    the splat table (kernels 10 and 11, ``csrc/table.cu``) on the uniform
@@ -34,7 +34,15 @@ csrc`` (nvcc, at first use), then:
    also on the device alone, the scatter's stored bytes over its device
    time a pass, and the whole sort and the sort of the tile ids against
    ``torch.sort(stable=True)`` element for element, each between events and
-   on the device alone; the bucketing-level probe kernel exact on 64
+   on the device alone; the record sort stage (``kernels/record_sort.py``:
+   the counts launch with the bounds, a radix scatter a pass, the row gather;
+   the un-sort) on the uniform and clustered flagship records, pair and
+   packed keys, and in phase 6 the 1080p records (pair: the packed key holds
+   512 tiles), its sorted fields, bounds and inverse index bit-equal to the
+   plain stage (torch.sort of the int64 key, index_select, searchsorted) and
+   its un-sort to index_copy_ in both cotangent modes, each timed between
+   events, on the device alone and launch by launch, beside the plain stage
+   call by call and the library calls it replaced; the bucketing-level probe kernel exact on 64
    chunks and timed through its probe, between events and on the device
    alone at 6,291,456 records, and the
    build-cache probe with its kernel, timed at (8, 128) and at 1,000,003
@@ -53,8 +61,12 @@ csrc`` (nvcc, at first use), then:
    operating point (3,616,103 splats at 1024x512, uniform and clustered
    scenes), with every kernel launch counter reset just before and read
    just after; checks zero overflow, a finite image with coverage, every
-   forward kernel launched (the splat table once a frame), the uniform frame against the all-plain
-   pipeline, and a small frame against the port's CPU path; then the
+   forward kernel launched (the splat table once a frame, the record sort
+   stage's 2 + 6 launches), the uniform frame against the all-plain
+   pipeline, and a small frame against the port's CPU path; the default
+   frame and its gradients bit-equal on the record sort kernels and on the
+   plain stage, and no torch.sort, index_select, searchsorted or index_copy_
+   kernel on the device in a forward + backward on the kernels; then the
    uniform frame through the single-key record sorts (packed + radix and
    hoisted + radix bit-equal to their ``torch.sort`` frames, hoisted, and
    the q16 inference mode within 0.01 of the f32 frame), each with its own
@@ -71,17 +83,16 @@ csrc`` (nvcc, at first use), then:
    to name the threshold flip behind it; the counts reset before the
    kernels' frames and read after, and the oracle launching none;
 4. prints each flagship scene's per-stage device times of one forward +
-   backward (CUDA events), and in phase 6 the 1080p scene's; then the
-   uniform frame's record sort of the packed key stage by stage, on the
-   radix route and on the torch.sort route, and the whole record sort on
-   each, between events and on the device alone;
+   backward (CUDA events: "sort" and "sort bwd" are the record sort stage),
+   and in phase 6 the 1080p scene's;
 5. drives the training path: five Adam steps of ``make_train_step`` (L1 +
    D-SSIM, per-splat densification statistic) on the uniform flagship scene
    with perturbed colours against its clean render, counters reset just
    before and read just after; checks finite gradients, zero overflow, a
    falling loss and the training path's seven kernels launched (the splat
-   table and its backward once a step); times forward + backward
-   and the whole step;
+   table, its backward and the un-sort once a step) and the record sort
+   stage; the five losses bit-equal on the plain record sort stage; times
+   forward + backward and the whole step;
 5b. trains with adaptive density control: the same scene and target padded
    to 4,194,304 rows (the padded start's frame bit-equal to the unpadded
    one under ``tight_rect`` True and False, the live record count
@@ -100,8 +111,9 @@ csrc`` (nvcc, at first use), then:
    ``--densify``) and the COLMAP route on a small workspace, each with its
    own counts, exit 0, its three files and a finite PSNR;
 6. times one forward + backward of the clustered flagship and of the
-   1,000,000-splat 1920x1080 scene, and holds a small frame's gradients
-   on the card against the port's CPU path;
+   1,000,000-splat 1920x1080 scene (the record sort stage and the un-sort
+   launched there), and holds a small frame's gradients on the card
+   against the port's CPU path;
 8. drives the render CLI (``scripts/torch_render_cli.py``) in-process on
    the uniform flagship's PLY at the reference pose, route by route
    (default, q16, depth, a 4-frame orbit; golden on the gate scene), each
@@ -302,7 +314,21 @@ KERNELS = {
     # the port's own: no pallas_call; XLA fuses the jitted preprocess there
     "splat_table": (f"{PKG}/csrc/table.cu", f"{TPU_PKG}/ops/projection.py:42"),
     "splat_table_bwd": (f"{PKG}/csrc/table.cu", f"{TPU_PKG}/ops/projection.py:42"),
+    # the port's own stage: the JAX package's payload lax.sort (XLA there),
+    # its searchsorted, and the sort's backward
+    "record_sort": (f"{PKG}/csrc/radix_sort.cu",
+                    f"{TPU_PKG}/ops/pallas/records.py:255"),
+    "record_unsort": (f"{PKG}/csrc/record_gather.cu",
+                      f"{TPU_PKG}/ops/pallas/records.py:189"),
 }
+# the sources of the record sort stage's launches: the counts and the
+# passes (kernels 6 and 7's file), the row gather of the fields
+RECORD_SORT_SOURCES = (f"{PKG}/csrc/radix_sort.cu", f"{PKG}/csrc/record_gather.cu")
+# device kernel names of the calls the record sort stage replaced
+# (torch.sort, index_select, searchsorted, index_copy_), lower case: none
+# may run on the kernel stage of a default frame
+LIBRARY_SORT_NAMES = ("sort", "index_select", "indexselect", "searchsorted",
+                      "index_copy", "indexcopy")
 # the kernels every frame launches, and those a forward + backward adds
 FRAME_KERNELS = ("splat_table", "cumsum", "expand", "composite")
 STEP_KERNELS = FRAME_KERNELS + ("segsum", "composite_bwd", "splat_table_bwd")
@@ -427,6 +453,69 @@ def device_us(fn, calls: int = 50, tries: int = 3):
     return None
 
 
+def device_launches(fn, runs: int = 5):
+    """Each launch of one call of ``fn`` on the device, in launch order:
+    [(name, median us)] over ``runs`` profiled calls, each bracketed by spin
+    kernels as in ``device_us``; a run that holds another number of records
+    than the first is left out. None where no run held a record."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    seen = []
+    for _ in range(runs):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            torch.cuda._sleep(1000)
+            fn()
+            torch.cuda._sleep(1000)
+            torch.cuda.synchronize()
+        got = sorted((e for e in prof.events() if e.device_type == DeviceType.CUDA
+                      and "spin_kernel" not in e.name), key=lambda e: e.time_range.start)
+        seen.append([(e.name, e.time_range.elapsed_us()) for e in got])
+    seen = [r for r in seen if r and len(r) == len(seen[0])]
+    if not seen:
+        return None
+    return [(seen[0][j][0][:48], statistics.median(r[j][1] for r in seen))
+            for j in range(len(seen[0]))]
+
+
+@contextlib.contextmanager
+def plain_record_sort():
+    """The record sort stage on its plain version (torch.sort, index_select,
+    searchsorted; index_copy_ back) on CUDA tensors too, inside the block:
+    the route the kernels are held to, frame for frame and step for step."""
+    from openglgaussiansplattingrenderer_tpu_torch.ops.kernels import record_sort as rs
+
+    fwd, unsort = rs.record_sort_fwd, rs.record_unsort
+    rs.record_sort_fwd = (lambda fields, words, num_tiles, key, passes_model=False,
+                          inverse=True: rs.record_sort_plain(fields, words, num_tiles, key))
+    rs.record_unsort = (lambda g, order, paired_rows=None:
+                        rs.unsort_plain(g, order, rs._paired(paired_rows)))
+    try:
+        yield
+    finally:
+        rs.record_sort_fwd, rs.record_unsort = fwd, unsort
+
+
+def device_names(fn):
+    """{full kernel name: records} of one profiled call of ``fn`` on the
+    device (after a warm-up call)."""
+    from collections import Counter
+
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return Counter(e.name for e in prof.events() if e.device_type == DeviceType.CUDA)
+
+
 def device_top(fn, top: int = 8):
     """What one call of ``fn`` runs on the device, from torch.profiler's
     kernel and memset records of one profiled call (after a warm-up call):
@@ -474,6 +563,7 @@ def kernel_wrappers():
     """name -> wrapper holding the launch counter, in KERNELS' order."""
     from openglgaussiansplattingrenderer_tpu_torch.ops.kernels import composite as kc
     from openglgaussiansplattingrenderer_tpu_torch.ops.kernels import radix_sort as rx
+    from openglgaussiansplattingrenderer_tpu_torch.ops.kernels import record_sort as rs
     from openglgaussiansplattingrenderer_tpu_torch.ops.kernels import records as kr
     from openglgaussiansplattingrenderer_tpu_torch.ops.kernels import scan as ks
     from openglgaussiansplattingrenderer_tpu_torch.ops.kernels import table as kt
@@ -484,7 +574,8 @@ def kernel_wrappers():
             "radix_counts": rx.radix_counts, "radix_scatter": rx.radix_scatter,
             "bucketer_level": bucketer_probe.bucketer_level,
             "probe_affine": cache_key_probe.probe_affine,
-            "splat_table": kt.splat_table, "splat_table_bwd": kt.splat_table_bwd}
+            "splat_table": kt.splat_table, "splat_table_bwd": kt.splat_table_bwd,
+            "record_sort": rs.record_sort, "record_unsort": rs.record_unsort}
 
 
 def reset_launches() -> None:
@@ -986,75 +1077,184 @@ def check_radix(frame, results):
         f"{us(whole_tile_us)} us against torch.sort on int32 {sort32:.4f} ms")
 
 
-def sort_walk(frame):
-    """Phase [4]: ``fastpath.sort_records`` of the packed key on the frame's
-    records, stage by stage, on the radix route and on the torch.sort
-    route, each stage fed the outputs of the one before it; every stage and
-    then the whole call timed between CUDA events (median of 9) and on the
-    device alone."""
-    import dataclasses
+def record_sort_bound(c: int, key: str, num_tiles: int) -> dict:
+    """``bound`` of the record sort stage's forward: the fields read and the
+    sorted fields written (36 B each a record), the key words read (4 B a
+    word), the inverse index written (4 B a record) and the bounds; a
+    shift, a mask and a count a digit of a record a pass."""
+    from openglgaussiansplattingrenderer_tpu_torch.ops.kernels import record_sort as rs
 
+    lo_p, hi_p = rs.passes(num_tiles, key)
+    words = 2 if key == "pair" else 1
+    return bound(c * (76 + 4 * words) + 4 * (num_tiles + 1), 3 * (lo_p + hi_p) * c)
+
+
+def check_record_sort(name, frame, keys=("pair", "packed")):
+    """The record sort stage (kernels/record_sort.py) on the frame's own
+    records, for each key: the expansion's sort words bit-equal to its
+    plain version's; the kernels' sorted fields and bounds bit-equal to the
+    plain stage (torch.sort of the int64 key, index_select, searchsorted)
+    and their inverse index to the inverse of its source index; the
+    un-sort bit-equal to index_copy_ in both cotangent modes. The forward
+    and the un-sort timed between CUDA events and on the device alone, the
+    forward launch by launch too, beside the plain stage and the library
+    calls the stage replaced, call by call: torch.sort(stable=True) of the
+    int64 key + index_select + searchsorted, and index_copy_. Returns {key:
+    (forward row, un-sort row)}."""
     import torch
 
-    from openglgaussiansplattingrenderer_tpu_torch.ops import fastpath
-    from openglgaussiansplattingrenderer_tpu_torch.ops.kernels import radix_sort as rx
+    from openglgaussiansplattingrenderer_tpu_torch.ops.kernels import record_sort as rs
     from openglgaussiansplattingrenderer_tpu_torch.ops.kernels import records as kr
     from openglgaussiansplattingrenderer_tpu_torch.ops.kernels import scan as ks
 
     def us(v):
         return "not measured" if v is None else f"{v:.1f}"
 
-    t, bits = frame.cfg.num_tiles, rx.BITS
-    key_bits = kr.packed_key_bits(t)
-    with torch.no_grad():
-        table, counts, ekw = frame.table()
-        rec_f, rec_t, rec_d = kr.expand(*table, ks.cumsum(counts), **ekw)
-        del table
-        bnd = (torch.arange(t + 1, dtype=torch.int64, device=rec_t.device)
-               << kr.PACKED_DEPTH_BITS)
-        # the radix route: the u32 key and the index payload, one count of
-        # every pass's digits, then a scatter a pass
-        key = kr.packed_key_u32(rec_t, rec_d)
-        c = key.shape[0]
-        idx = torch.arange(c, dtype=torch.int32, device=key.device)
-        cnt = rx.radix_counts(key, key_bits, bits)
-        radix = [("packed_key_u32", lambda: kr.packed_key_u32(rec_t, rec_d)),
-                 ("index arange", lambda: torch.arange(c, dtype=torch.int32,
-                                                       device=key.device)),
-                 ("payload stack", lambda: torch.stack([idx])),
-                 ("radix_counts", lambda: rx.radix_counts(key, key_bits, bits))]
-        k, v = key, torch.stack([idx])
-        for p in range(-(-key_bits // bits)):
-            radix.append((f"scatter {p}", lambda k=k, v=v, p=p: rx.radix_scatter(
-                k, v, cnt[p], p * bits, bits)))
-            k, v = rx.radix_scatter(k, v, cnt[p], p * bits, bits)
-        sk, si = kr.u32_values(k), v[0]
-        radix += [("fields index_select", lambda: rec_f.index_select(1, si)),
-                  ("u32_values", lambda: kr.u32_values(k)),
-                  ("searchsorted", lambda: torch.searchsorted(sk, bnd).to(torch.int32))]
-        key64 = kr.packed_key(rec_t, rec_d)
-        lk, li = torch.sort(key64, stable=True)
-        assert torch.equal(sk, lk) and torch.equal(si.to(torch.int64), li), (
-            "sort walk: the radix route differs from torch.sort(stable=True)")
-        lax = [("packed_key", lambda: kr.packed_key(rec_t, rec_d)),
-               ("torch.sort", lambda: torch.sort(key64, stable=True)),
-               ("fields index_select", lambda: rec_f.index_select(1, li)),
-               ("searchsorted", lambda: torch.searchsorted(lk, bnd).to(torch.int32))]
-        for route, stages, sort in (("packed + radix", radix, "radix"),
-                                    ("packed torch.sort", lax, "lax")):
-            cfg = dataclasses.replace(frame.cfg, depth_key="packed", record_sort=sort)
-            whole = (lambda cfg=cfg: fastpath.sort_records(rec_f, rec_t, rec_d,
-                                                           *frame.size, cfg))
-            rows = {name: (cuda_ms(fn, reps=9), device_us(fn, calls=20))
-                    for name, fn in stages + [("sort_records", whole)]}
-            ms, dev = rows.pop("sort_records")
-            log(f"[4] uniform {route} sort_records stages (ms between events / us "
-                f"on the device alone): "
-                + ", ".join(f"{k} {a:.4f} / {us(b)}" for k, (a, b) in rows.items())
-                + f"; sums {sum(a for a, _ in rows.values()):.4f} ms / "
-                + (us(sum(b for _, b in rows.values()))
-                   if all(b is not None for _, b in rows.values()) else "not measured")
-                + f" us; the whole sort_records {ms:.4f} ms / {us(dev)} us")
+    table, counts, ekw = frame.table()
+    cum = ks.cumsum(counts)
+    t = frame.cfg.num_tiles
+    rows = {}
+    for key in keys:
+        got = kr.expand(*table, cum, **ekw, key=key)
+        ref = kr.expand_plain(*table, cum, **ekw, key=key)
+        assert all(torch.equal(a, b) for a, b in zip(got, ref)), (
+            f"{name}: the expansion's {key} outputs differ from the plain version")
+        del ref
+        rec_f, rec_t, rec_d, word = got
+        words = rs.words_of(rec_t, rec_d, key, word)
+        c, dev = rec_f.shape[1], rec_f.device
+        sf, bounds, inv = rs.record_sort_fwd(rec_f, words, t, key)
+        p_sf, p_bounds, si = rs.record_sort_plain(rec_f, words, t, key)
+        assert torch.equal(sf, p_sf), f"{name} {key}: sorted fields differ from the plain stage"
+        assert torch.equal(bounds, p_bounds), f"{name} {key}: bounds differ from searchsorted"
+        assert torch.equal(inv, rs.inverse_plain(si)), f"{name} {key}: the inverse index differs"
+        # a frame without a gradient: the same outputs, no inverse stored
+        n_sf, n_bounds, n_inv = rs.record_sort_fwd(rec_f, words, t, key, inverse=False)
+        assert n_inv is None and torch.equal(n_sf, sf) and torch.equal(n_bounds, bounds)
+        del sf, p_sf, p_bounds, n_sf, n_bounds
+
+        def fwd():
+            return rs.record_sort_fwd(rec_f, words, t, key)
+
+        def fwd_frame():
+            return rs.record_sort_fwd(rec_f, words, t, key, inverse=False)
+
+        k64 = rs.key64(words, key)
+        sk, _ = torch.sort(k64, stable=True)
+        bnd = (torch.arange(t + 1, dtype=torch.int64, device=dev)
+               << (32 if key == "pair" else kr.PACKED_DEPTH_BITS))
+        parts = {"int64 key": lambda: rs.key64(words, key),
+                 "torch.sort": lambda: torch.sort(k64, stable=True),
+                 "index_select": lambda: rec_f.index_select(1, si),
+                 "searchsorted": lambda: torch.searchsorted(sk, bnd)}
+        plain_parts = {k: (cuda_ms(fn, reps=9), device_us(fn, calls=20))
+                       for k, fn in parts.items()}
+
+        def library():
+            return parts["torch.sort"](), parts["index_select"](), parts["searchsorted"]()
+
+        lo_p, hi_p = rs.passes(t, key)
+        f_row = dict(
+            max_abs_err=0.0, ms=cuda_ms(fwd, reps=9), device_us=device_us(fwd, calls=20),
+            launches_device_us=device_launches(fwd),
+            no_inverse_ms=cuda_ms(fwd_frame, reps=9),
+            no_inverse_device_us=device_us(fwd_frame, calls=20),
+            plain_ms=cuda_ms(lambda: rs.record_sort_plain(rec_f, words, t, key), reps=9),
+            plain_parts_ms_device_us=plain_parts,
+            library_ms=cuda_ms(library, reps=9), library_device_us=device_us(library, calls=20),
+            library_is="torch.sort(stable=True) of the int64 key + index_select of the "
+            "nine rows + searchsorted", key=key, records=c, binned=int(bounds[-1]), tiles=t,
+            passes=lo_p + hi_p, **record_sort_bound(c, key, t))
+        del k64, sk
+
+        gen = torch.Generator(device=dev).manual_seed(6)
+        g = torch.randn((kr.NUM_FIELDS, c), generator=gen, device=dev)
+        mode = kr.BWD_COT_PACK
+        try:
+            for cot in ("f32", "bf16"):
+                kr.BWD_COT_PACK = cot
+                assert torch.equal(rs.record_unsort(g, inv),
+                                   rs.unsort_plain(g, si, rs._paired(None))), (
+                    f"{name} {key}: the un-sort differs from index_copy_ "
+                    f"({kr.BWD_COT_PACK} cotangents)")
+        finally:
+            kr.BWD_COT_PACK = mode
+
+        def copy():
+            return torch.empty_like(g).index_copy_(1, si, g)
+
+        b_row = dict(
+            max_abs_err=0.0, ms=cuda_ms(lambda: rs.record_unsort(g, inv), reps=9),
+            device_us=device_us(lambda: rs.record_unsort(g, inv), calls=20),
+            plain_ms=cuda_ms(lambda: rs.unsort_plain(g, si), reps=9),
+            library_ms=cuda_ms(copy, reps=9), library_device_us=device_us(copy, calls=20),
+            library_is="index_copy_ of the nine rows by the source index", key=key,
+            records=c, **bound(76 * c, 0))
+        log(f"[2] record_sort {name}, {key} key: C={c} records, {t} tiles, "
+            f"{lo_p + hi_p} passes; sorted fields, bounds and inverse bit-equal to the "
+            f"plain stage; kernels {f_row['ms']:.4f} ms, on the device alone "
+            f"{us(f_row['device_us'])} us (without the inverse, as a frame without a "
+            f"gradient: {f_row['no_inverse_ms']:.4f} ms, "
+            f"{us(f_row['no_inverse_device_us'])} us; by launch: "
+            + ", ".join(f"{n.split('(')[0][-22:]} {v:.1f}"
+                        for n, v in (f_row["launches_device_us"] or []))
+            + f"), plain {f_row['plain_ms']:.4f} ms (by call, ms / device us: "
+            + ", ".join(f"{k} {a:.4f} / {us(b)}" for k, (a, b) in plain_parts.items())
+            + f"), library {f_row['library_ms']:.4f} ms / {us(f_row['library_device_us'])} "
+            f"us, bound {f_row['bound_ms']:.4f} ms; un-sort bit-equal to index_copy_ "
+            f"(f32 and bf16 cotangents): {b_row['ms']:.4f} ms, on the device alone "
+            f"{us(b_row['device_us'])} us, plain {b_row['plain_ms']:.4f} ms, index_copy_ "
+            f"{b_row['library_ms']:.4f} ms / {us(b_row['library_device_us'])} us, bound "
+            f"{b_row['bound_ms']:.4f} ms")
+        rows[key] = (f_row, b_row)
+        del got, rec_f, rec_t, rec_d, word, words, g, inv, si
+    return rows
+
+
+def check_sort_routes(frame, img):
+    """Phase [3]: the default frame and its gradients through the record
+    sort kernels and through the plain stage (``plain_record_sort``), bit
+    for bit, each timed; the device records of one forward + backward on
+    the kernels hold none of the library calls the stage replaced
+    (``LIBRARY_SORT_NAMES``), and those of the plain stage do."""
+    import torch
+
+    with plain_record_sort():
+        img_p, _ = frame.render()
+    assert torch.equal(img, img_p), "the default frame differs between the sort routes"
+    with torch.enable_grad():
+        g_k, _ = frame.grads(mean_sq_loss)
+        with plain_record_sort():
+            g_p, _ = frame.grads(mean_sq_loss)
+        for k in g_k:
+            assert torch.equal(g_k[k], g_p[k]), f"the {k} gradient differs between the sort routes"
+        del g_k, g_p
+
+        def fb():
+            return frame.grads(mean_sq_loss)
+
+        nums = {"frame_ms": cuda_ms(frame.render),
+                "fwdbwd_ms": cuda_ms(fb, reps=3, warmup=1)}
+        names_k = device_names(fb)
+        with plain_record_sort():
+            nums["plain_stage_frame_ms"] = cuda_ms(frame.render)
+            nums["plain_stage_fwdbwd_ms"] = cuda_ms(fb, reps=3, warmup=1)
+            names_p = device_names(fb)
+
+    def hits(names):
+        return sorted(n[:100] for n in names
+                      if any(p in n.lower() for p in LIBRARY_SORT_NAMES))
+
+    assert hits(names_p), "no library sort kernel recognised on the plain stage"
+    assert not hits(names_k), f"library sort kernels on the kernel stage: {hits(names_k)}"
+    nums["plain_stage_library_kernels"] = hits(names_p)
+    log(f"[3] uniform pair frame and gradients bit-equal on the record sort kernels and "
+        f"on the plain stage; frame {nums['frame_ms']:.3f} ms (plain stage "
+        f"{nums['plain_stage_frame_ms']:.3f}), forward + backward {nums['fwdbwd_ms']:.3f} "
+        f"ms (plain stage {nums['plain_stage_fwdbwd_ms']:.3f}); device kernels of one "
+        f"forward + backward: {len(names_k)} names, none of torch.sort, index_select, "
+        f"searchsorted, index_copy_ (the plain stage's: {nums['plain_stage_library_kernels']})")
+    return nums
 
 
 def check_probes(results):
@@ -1145,6 +1345,7 @@ def check_single_key_frames(frame, img_pair, img_packed):
     import torch
 
     from openglgaussiansplattingrenderer_tpu_torch.ops.kernels import radix_sort as rx
+    from openglgaussiansplattingrenderer_tpu_torch.ops.kernels import record_sort as rs
     from openglgaussiansplattingrenderer_tpu_torch.ops.kernels import records as kr
     from openglgaussiansplattingrenderer_tpu_torch.splats import inference_config
 
@@ -1161,13 +1362,19 @@ def check_single_key_frames(frame, img_pair, img_packed):
         f.render()
         torch.cuda.synchronize()
         counts[name] = read_launches()
-        # one count of every pass's digits, then a scatter a pass: at the
-        # flagship's 512 tiles four passes of the packed key, two of the tile id
-        key_bits = (kr.packed_key_bits(cfg.num_tiles) if name.startswith("packed")
-                    else kr.tile_key_bits(cfg.num_tiles))
-        want = (1, -(-key_bits // rx.BITS)) if cfg.record_sort == "radix" else (0, 0)
-        got = (counts[name]["radix_counts"], counts[name]["radix_scatter"])
-        assert got == want, f"uniform {name}: radix launches {got}, not {want}"
+        # the packed key's f32 sort is the record sort stage on either route:
+        # one count, a scatter a pass (four at the flagship's 512 tiles), one
+        # gather; the hoisted radix route counts once and scatters a pass of
+        # the tile id (two); q16 and the hoisted lax route run torch.sort
+        if name == "packed+radix":
+            want = (0, 0, 2 + sum(rs.passes(cfg.num_tiles, "packed")))
+        elif cfg.record_sort == "radix":
+            want = (1, rx.passes_of(kr.tile_key_bits(cfg.num_tiles), rx.BITS), 0)
+        else:
+            want = (0, 0, 0)
+        got = tuple(counts[name][k] for k in ("radix_counts", "radix_scatter", "record_sort"))
+        assert got == want, (f"uniform {name}: radix and record sort launches {got}, "
+                             f"not {want}")
         log(f"[3] kernel launches of one uniform {name} frame: {counts[name]}")
         images[name], times[name] = check_frame(f"uniform {name}", f)
     assert torch.equal(images["packed+radix"], img_packed), (
@@ -1594,6 +1801,18 @@ def check_training(frame):
         loss_hist.append(float(metrics["loss"]))
         psnr_hist.append(float(metrics["psnr"]))
     launches = read_launches()
+    # the same steps from the same start on the plain record sort stage:
+    # the losses bit for bit
+    with torch.no_grad():
+        plain_state = step.init(raw_from_params(start.params))
+    plain_hist = []
+    with plain_record_sort():
+        for _ in range(TRAIN_STEPS):
+            plain_state, plain_metrics = step(plain_state, target, *frame.args[:6])
+            plain_hist.append(float(plain_metrics["loss"]))
+    assert plain_hist == loss_hist, (
+        f"training losses differ between the sort routes: {loss_hist} vs {plain_hist}")
+    del plain_state, plain_metrics
 
     gnorm = metrics["densify_grad_norm"]
     assert gnorm.shape == (n,) and bool(torch.isfinite(gnorm).all()), gnorm.shape
@@ -1611,14 +1830,16 @@ def check_training(frame):
     assert overflow == 0, f"training: overflow {overflow} after the steps"
     for k in STEP_KERNELS:
         assert launches[k] > 0, f"{k} kernel never launched on the training path"
-    for k in ("splat_table", "splat_table_bwd"):
+    for k in ("splat_table", "splat_table_bwd", "record_unsort"):
         assert launches[k] == TRAIN_STEPS, f"{k}: {launches[k]} launches in {TRAIN_STEPS} steps"
+    assert launches["record_sort"] > 0, "the record sort stage never launched in training"
     log(f"[5] training, {n} splats at {w}x{h}, {TRAIN_STEPS} steps of "
         f"make_train_step (lambda_dssim {tc.lambda_dssim}, grad norms): loss "
         + " ".join(f"{v:.6f}" for v in loss_hist)
         + "; psnr " + " ".join(f"{v:.3f}" for v in psnr_hist)
         + f"; step wall ms {' '.join(f'{v:.1f}' for v in wall)} (median "
-        f"{statistics.median(wall):.3f}); forward + backward {fb_ms:.3f} ms; "
+        f"{statistics.median(wall):.3f}); the same losses bit for bit on the plain "
+        f"record sort stage; forward + backward {fb_ms:.3f} ms; "
         f"largest colour move {moved:.4f}; overflow {overflow}")
     log(f"[5] kernel launches on the training path: {launches}")
     return launches, statistics.median(wall)
@@ -3052,6 +3273,7 @@ def main(argv=None) -> int:
     from openglgaussiansplattingrenderer_tpu_torch import Camera, RenderConfig
     from openglgaussiansplattingrenderer_tpu_torch.io import ply as ply_io
     from openglgaussiansplattingrenderer_tpu_torch.ops.kernels import build
+    from openglgaussiansplattingrenderer_tpu_torch.ops.kernels import record_sort as rs
     from openglgaussiansplattingrenderer_tpu_torch.parallel import sharded as sh
     from openglgaussiansplattingrenderer_tpu_torch.render import autotune_capacity
 
@@ -3139,6 +3361,21 @@ def main(argv=None) -> int:
         cl_exp, cl_seg = check_expand_segsum("clustered flagship", frames["clustered"])
         results["expand"]["clustered"], results["segsum"]["clustered"] = cl_exp, cl_seg
         check_radix(frames["uniform"], results)
+        # the record sort stage on the uniform frame's records, pair (the
+        # main path's) and packed; the clustered frame's and (phase 6) the
+        # 1080p scene's ride along
+        rsort = {k: check_record_sort(f"{k} flagship", frames[k])
+                 for k in ("uniform", "clustered")}
+        results["record_sort"] = dict(
+            rsort["uniform"]["pair"][0], packed=rsort["uniform"]["packed"][0],
+            clustered=rsort["clustered"]["pair"][0],
+            clustered_packed=rsort["clustered"]["packed"][0],
+            sources=list(RECORD_SORT_SOURCES))
+        results["record_unsort"] = dict(
+            rsort["uniform"]["pair"][1], packed=rsort["uniform"]["packed"][1],
+            clustered=rsort["clustered"]["pair"][1],
+            clustered_packed=rsort["clustered"]["packed"][1])
+        del rsort
         # kernels 4 and 5 at the main path's shapes; the gate scene's and
         # the clustered frame's numbers ride along under their names
         fwd, bwd = check_composite("uniform flagship", frames["uniform"])
@@ -3168,6 +3405,11 @@ def main(argv=None) -> int:
                 f"{k} kernel never launched on the render path")
         for k in ("radix_counts", "radix_scatter"):
             assert render_launches[k] == 0, f"{k} launched on the torch.sort path"
+        # the record sort stage: one count, a scatter a pass, one gather a frame
+        assert one["record_sort"] == 2 + sum(rs.passes(frames["uniform"].cfg.num_tiles,
+                                                        "pair")), one
+        assert one["record_unsort"] == 0, one
+        results["record_sort"]["routes"] = check_sort_routes(frames["uniform"], img_u)
         sort_launches = check_single_key_frames(frames["uniform"], img_u, img_p)
         del img_p
         check_small_q16(dev)
@@ -3201,7 +3443,6 @@ def main(argv=None) -> int:
     # ---- 4. stage times of one forward + backward ------------------------
     for name in ("uniform", "clustered"):
         stage_times(f"{name} pair", frames[name])
-    sort_walk(frames["uniform"])
 
     # ---- 5. the training path -------------------------------------------
     launches, train_ms = check_training(frames["uniform"])
@@ -3236,8 +3477,16 @@ def main(argv=None) -> int:
     with torch.no_grad():
         hd_exp, hd_seg = check_expand_segsum(f"{MSPLATS} splats {MSPLATS_W}x{MSPLATS_H}",
                                              msplats)
+        # the packed key holds at most 512 tiles; 1080p has 2,040
+        hd_sort = check_record_sort(f"{MSPLATS} splats {MSPLATS_W}x{MSPLATS_H}", msplats,
+                                    keys=("pair",))["pair"]
     results["expand"]["hd"], results["segsum"]["hd"] = hd_exp, hd_seg
+    results["record_sort"]["hd"], results["record_unsort"]["hd"] = hd_sort
+    reset_launches()
     check_fwdbwd(f"{MSPLATS} splats {MSPLATS_W}x{MSPLATS_H}", msplats)
+    hd_launches = read_launches()
+    assert hd_launches["record_sort"] > 0 and hd_launches["record_unsort"] > 0, hd_launches
+    log(f"[6] kernel launches of the 1080p forward + backward runs: {hd_launches}")
     stage_times(f"{MSPLATS} splats {MSPLATS_W}x{MSPLATS_H}", msplats)
     check_small_gradients(dev)
 
@@ -3267,12 +3516,12 @@ def main(argv=None) -> int:
         probe_launches = check_probes(results)
 
     # ---- 7. results ---------------------------------------------------------
-    # "launches" counts the training path's five steps for the first five
-    # kernels, one packed + radix frame for the two radix-sort kernels and
-    # one run of its probe for each probe kernel; the default render path's
-    # three frames (and their timing repetitions) and one packed + radix
-    # frame are counted beside it
-    launches.update({k: sort_launches["packed+radix"][k]
+    # "launches" counts the training path's five steps for the kernels of
+    # the frame and its backward, one hoisted + radix frame for the two
+    # radix-sort kernels and one run of its probe for each probe kernel; the
+    # default render path's three frames (and their timing repetitions) and
+    # one packed + radix frame are counted beside it
+    launches.update({k: sort_launches["hoisted+radix"][k]
                      for k in ("radix_counts", "radix_scatter")})
     launches.update({k: probe_launches[k] for k in ("bucketer_level", "probe_affine")})
     rows = []

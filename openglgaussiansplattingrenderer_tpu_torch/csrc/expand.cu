@@ -5,8 +5,9 @@
 //           _expand_kernel (a one-hot bf16 MXU matmul gather over
 //           128-floored DMA windows of a 16-row f32 table).
 // Bound on the card: device memory. Each record writes 11 words (9 fields,
-//           tile, depth); each splat's 14 words (9 fields, the tile rect,
-//           depth, the prefix sum) are read once.
+//           tile, depth), 12 where it also writes the record sort's key
+//           word; each splat's 14 words (9 fields, the tile rect, depth, the
+//           prefix sum) are read once.
 // Design:   the partition of records_common.cuh: a block owns K = 1,024
 //           items of the merged sequence of records and splat ends, so a
 //           run of empty splats or one large splat cannot load one block
@@ -35,7 +36,11 @@
 //           only does nothing past its search. The items [n + total, n +
 //           capacity) are the records at or past total: zero with tile =
 //           num_tiles, written by the grid's last blocks with the same
-//           stores.
+//           stores. With a record in registers, the record sort's key word
+//           follows from its tile and depth (sort_word): the pair key's low
+//           word (its high word is the tile) or the packed word, 4 B a
+//           record more; the depth is still written (4 B a record) so that
+//           every caller keeps its (fields, tile, depth).
 
 #include "records_common.cuh"
 
@@ -77,12 +82,31 @@ struct Record {
   float f[kFields];
   int tile;
   float d;
+  uint32_t key;
 };
+
+// The record sort's key word (records.sort_word): kKeyPair, the low word
+// of the (tile, depth) pair key, the depth's bits with non-negative floats'
+// sign bit set and negative floats' bits inverted, so that unsigned order is
+// float order (-0.0 before +0.0); kKeyPacked, tile * 2^22 + the depth
+// clamped to [0, 1] in 22 bits. kKeyNone writes no word.
+constexpr int kKeyNone = 0, kKeyPair = 1, kKeyPacked = 2;
+
+__device__ __forceinline__ uint32_t sort_word(int mode, int tile, float d) {
+  if (mode == kKeyPair) {
+    const uint32_t b = __float_as_uint(d);
+    return (b & 0x80000000u) ? ~b : (b | 0x80000000u);
+  }
+  const uint32_t q = 1u << 22;
+  const uint32_t qd = min((uint32_t)(fminf(fmaxf(d, 0.0f), 1.0f) * (float)q), q - 1u);
+  return (uint32_t)tile * q + qd;
+}
 
 // record r of the window's splat i: its fields, tile and depth, the cull
 // in the TPU kernel's operation order
 __device__ __forceinline__ void make_record(const Window& w, int i, int r, int gx,
-                                            int num_tiles, int pw, int ph, Record& o) {
+                                            int num_tiles, int pw, int ph, int key_mode,
+                                            Record& o) {
   const int j = r - w.cum[i];
   const int ext = w.ext[i];
   const int q = j / ext;
@@ -104,13 +128,14 @@ __device__ __forceinline__ void make_record(const Window& w, int i, int r, int g
   const float q2 = (aa * dxs * dxs + cc * dy0 * dy0) + 2.0f * (bb * dxs * dy0);
   const float qmin = fminf(q1, q2);
   o.tile = qmin * 0.49999f <= w.ln_ratio[i] + 1e-4f ? ty * gx + tx : num_tiles;
+  o.key = sort_word(key_mode, o.tile, o.d);
 }
 
 // the records [a, b) of four-record groups, `fill` giving each one
 template <typename Fill>
 __device__ __forceinline__ void store_groups(int a, int b, bool vec, float* out_f,
-                                             int32_t* out_t, float* out_d, int capacity,
-                                             Fill fill) {
+                                             int32_t* out_t, float* out_d, uint32_t* out_k,
+                                             int capacity, Fill fill) {
   for (int g = (a >> 2) + (int)threadIdx.x; g <= ((b - 1) >> 2); g += kThreads) {
     Record rec[4];
     bool in[4];
@@ -130,6 +155,9 @@ __device__ __forceinline__ void store_groups(int a, int b, bool vec, float* out_
           make_int4(rec[0].tile, rec[1].tile, rec[2].tile, rec[3].tile);
       *reinterpret_cast<float4*>(out_d + r) =
           make_float4(rec[0].d, rec[1].d, rec[2].d, rec[3].d);
+      if (out_k)
+        *reinterpret_cast<uint4*>(out_k + r) =
+            make_uint4(rec[0].key, rec[1].key, rec[2].key, rec[3].key);
     } else {
 #pragma unroll
       for (int k = 0; k < 4; ++k) {
@@ -138,6 +166,7 @@ __device__ __forceinline__ void store_groups(int a, int b, bool vec, float* out_
         for (int f = 0; f < kFields; ++f) out_f[(size_t)f * capacity + r + k] = rec[k].f[f];
         out_t[r + k] = rec[k].tile;
         out_d[r + k] = rec[k].d;
+        if (out_k) out_k[r + k] = rec[k].key;
       }
     }
   }
@@ -152,8 +181,9 @@ expand_records(const float* __restrict__ fields,     // (9, n)
                int n, float* __restrict__ out_fields,  // (9, cap)
                int32_t* __restrict__ out_tile,         // (cap,)
                float* __restrict__ out_depth,          // (cap,)
+               uint32_t* __restrict__ out_key,         // (cap,) or null
                int capacity, int gx, int num_tiles, int pw, int ph,
-               float ln_alpha_min, bool vec) {
+               float ln_alpha_min, int key_mode, bool vec) {
   extern __shared__ __align__(16) unsigned char smem[];
   __shared__ long long s_split[records::kPieces + 1];
   Window& w = *reinterpret_cast<Window*>(smem);
@@ -191,10 +221,10 @@ expand_records(const float* __restrict__ fields,     // (9, n)
       // a thread's records only grow, so its splat only moves on: a search
       // of what is left once a record is past the splat
       int i = 0;
-      store_groups(p.r0, p.r1, vec, out_fields, out_tile, out_depth, capacity,
+      store_groups(p.r0, p.r1, vec, out_fields, out_tile, out_depth, out_key, capacity,
                    [&](int r, Record& o) {
                      if (w.cum[i + 1] <= r) i = window_search(w.cum, i + 1, nw, r);
-                     make_record(w, i, r, gx, num_tiles, pw, ph, o);
+                     make_record(w, i, r, gx, num_tiles, pw, ph, key_mode, o);
                    });
       __syncthreads();  // the window is refilled for the next piece
     }
@@ -203,11 +233,12 @@ expand_records(const float* __restrict__ fields,     // (9, n)
   const long long t0 = max(first, merged), t1 = last;
   if (t0 < t1) {
     store_groups((int)(t0 - n), (int)(t1 - n), vec, out_fields, out_tile, out_depth,
-                 capacity, [&](int, Record& o) {
+                 out_key, capacity, [&](int, Record& o) {
 #pragma unroll
                    for (int k = 0; k < kFields; ++k) o.f[k] = 0.0f;
                    o.tile = num_tiles;
                    o.d = 0.0f;
+                   o.key = sort_word(key_mode, num_tiles, 0.0f);
                  });
   }
 }
@@ -216,11 +247,15 @@ expand_records(const float* __restrict__ fields,     // (9, n)
 
 extern "C" int gs_records_items() { return kItems; }
 
+// out_key: null with key_mode kKeyNone, else (capacity,) u32 sort words.
 extern "C" int gs_expand(const float* fields, const int32_t* tile_min, const int32_t* tile_ext,
                          const float* depth, const int32_t* cum_incl, int n,
                          float* out_fields, int32_t* out_tile, float* out_depth,
-                         int capacity, int gx, int num_tiles, int pw, int ph,
-                         float ln_alpha_min, void* stream) {
+                         uint32_t* out_key, int capacity, int gx, int num_tiles, int pw,
+                         int ph, float ln_alpha_min, int key_mode, void* stream) {
+  if (key_mode < kKeyNone || key_mode > kKeyPacked ||
+      (key_mode == kKeyNone) != (out_key == nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
   if (capacity <= 0) return 0;
   static bool smem_set[64] = {};  // the attribute holds for a device's process
   int dev = 0;
@@ -236,9 +271,10 @@ extern "C" int gs_expand(const float* fields, const int32_t* tile_min, const int
   const long long span = (long long)records::kPieces * kItems;
   const unsigned blocks = (unsigned)((items + span - 1) / span);
   const bool vec = capacity % 4 == 0 && records::aligned16(out_fields) &&
-                   records::aligned16(out_tile) && records::aligned16(out_depth);
+                   records::aligned16(out_tile) && records::aligned16(out_depth) &&
+                   records::aligned16(out_key);
   expand_records<<<blocks, kThreads, kSmem, static_cast<cudaStream_t>(stream)>>>(
       fields, tile_min, tile_ext, depth, cum_incl, n, out_fields, out_tile, out_depth,
-      capacity, gx, num_tiles, pw, ph, ln_alpha_min, vec);
+      out_key, capacity, gx, num_tiles, pw, ph, ln_alpha_min, key_mode, vec);
   return static_cast<int>(cudaGetLastError());
 }

@@ -85,6 +85,19 @@
 //           The digit width is a template parameter: 4 bits is the TPU
 //           package's plan, 8 bits halves the passes and is what the port
 //           runs.
+//           The record sort stage (ops/kernels/record_sort.py) runs on these
+//           kernels: record_counts, one launch, counts every pass's digits
+//           of the key's one or two words and the records of each tile, and
+//           its last block (a ticket taken after a fence) scans the tile
+//           counts into the stage's bounds, so no searchsorted runs; then
+//           radix_scatter a pass, where the first pass makes the source
+//           index as a payload row of its own (iota: a key's input
+//           position), and the last stores no key and writes the inverse of
+//           the index it places (inv[source] = slot). A gather of the nine
+//           field rows inside the last pass measured ~3x slower on an H100
+//           than a separate row gather (record_gather.cu): its reads span
+//           the whole (9, C) array where the row gather's span one row,
+//           which stays in L2.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -227,11 +240,12 @@ __device__ uint32_t look_back(const volatile u64* desc, int chunk, int d) {
 template <int BITS>
 __global__ void __launch_bounds__(kThreads, 3)
 radix_scatter(const uint32_t* __restrict__ keys, const uint32_t* __restrict__ vals,
-              int nv, int n, int shift,
+              int nv, int iota, int n, int shift,
               const int32_t* __restrict__ counts,  // (2^BITS,) this pass's digits
               u64* state,  // ticket word, then (n_chunks, 2^BITS) descriptors; zero
-              uint32_t* __restrict__ out_keys, uint32_t* __restrict__ out_vals,
-              int wide) {
+              uint32_t* __restrict__ out_keys,  // null: the keys are not stored
+              uint32_t* __restrict__ out_vals, int wide,
+              int32_t* __restrict__ inv_out) {  // (n,) or null
   constexpr int K = 1 << BITS;
   static_assert(K <= kThreads, "phase B gives a digit to a thread");
   __shared__ __align__(16) uint32_t stage[2][kChunk];
@@ -331,23 +345,118 @@ radix_scatter(const uint32_t* __restrict__ keys, const uint32_t* __restrict__ va
     if (p < live_n) {
       const uint32_t k = stage[0][p];
       dst[i] = p + to_global[digit_of<BITS>(k, shift)];
-      out_keys[dst[i]] = k;
+      if (out_keys) out_keys[dst[i]] = k;
     }
   }
-  // a row is written to the buffer the row before it is not being read from
-  for (int r = 0; r < nv; ++r) {
+  // a row is written to the buffer the row before it is not being read from;
+  // the iota row is each key's input position
+  const int rows = nv + iota;
+  for (int r = 0; r < rows; ++r) {
     uint32_t* buf = stage[(r + 1) & 1];
-    const uint32_t* src = vals + (size_t)r * n + chunk0 + mine;
     uint32_t* out = out_vals + (size_t)r * n;
+    if (r < nv) {
+      const uint32_t* src = vals + (size_t)r * n + chunk0 + mine;
 #pragma unroll
-    for (int i = 0; i < kItems; ++i)
-      if (mine + i * 32 < live_n) buf[pos[i]] = src[i * 32];
+      for (int i = 0; i < kItems; ++i)
+        if (mine + i * 32 < live_n) buf[pos[i]] = src[i * 32];
+    } else {
+#pragma unroll
+      for (int i = 0; i < kItems; ++i)
+        if (mine + i * 32 < live_n) buf[pos[i]] = (uint32_t)(chunk0 + mine + i * 32);
+    }
     __syncthreads();
 #pragma unroll
     for (int i = 0; i < kItems; ++i) {
       const int p = threadIdx.x + i * kThreads;
       if (p < live_n) out[dst[i]] = buf[p];
     }
+  }
+  // the last row is the source index: inv_out[source] = slot
+  if (inv_out != nullptr) {
+    const uint32_t* src_of = stage[rows & 1];
+#pragma unroll
+    for (int i = 0; i < kItems; ++i) {
+      const int p = threadIdx.x + i * kThreads;
+      if (p < live_n) inv_out[src_of[p]] = dst[i];
+    }
+  }
+}
+
+// The record sort's count, 8-bit digits: lo_passes digit passes of the
+// words lo and hi_passes of the words hi (null where hi_passes is 0), and
+// the records of each tile, tile = hi, or lo >> tile_shift where hi is null,
+// into `bins` counts (a tile at or past bins is counted in none). Each warp
+// counts digits in shared memory of its own and the block counts tiles in
+// one shared table, as radix_counts does; the block then adds its sums into
+// the tables in device memory. The last block to finish (a ticket taken
+// after a fence) turns the tile counts into bounds[k] = the records whose
+// tile is below k, k < bins: a block-wide exclusive scan, each thread a
+// run of consecutive bins.
+__global__ void __launch_bounds__(kThreads)
+record_counts(const uint32_t* __restrict__ lo, const uint32_t* __restrict__ hi, int n,
+              int wide, int lo_passes, int hi_passes, int tile_shift, int bins,
+              int32_t* counts,        // (lo_passes + hi_passes, 256), zero
+              int32_t* hist,          // (bins,), zero
+              unsigned int* done,     // zero
+              int32_t* __restrict__ bounds) {  // (bins,)
+  constexpr int K = 256;
+  constexpr int kMaxPasses = 4;  // of a 32-bit word
+  extern __shared__ int smem[];  // kWarps x span digit counts, then bins tile counts
+  const int span = (lo_passes + hi_passes) * K;
+  for (int j = threadIdx.x; j < kWarps * span + bins; j += kThreads) smem[j] = 0;
+  __syncthreads();
+  int* mine = smem + (threadIdx.x >> 5) * span;
+  int* tiles = smem + kWarps * span;
+  auto count = [&](uint32_t l, uint32_t h) {
+#pragma unroll
+    for (int p = 0; p < kMaxPasses; ++p)
+      if (p < lo_passes) atomicAdd(&mine[p * K + digit_of<8>(l, p * 8)], 1);
+#pragma unroll
+    for (int p = 0; p < kMaxPasses; ++p)
+      if (p < hi_passes) atomicAdd(&mine[(lo_passes + p) * K + digit_of<8>(h, p * 8)], 1);
+    const uint32_t t = hi != nullptr ? h : l >> tile_shift;
+    if (t < (uint32_t)bins) atomicAdd(&tiles[t], 1);
+  };
+  const int stride = gridDim.x * kThreads;
+  const int first = blockIdx.x * kThreads + threadIdx.x;
+  if (wide) {  // 16 bytes a load of each word (n % 4 == 0, both aligned)
+    const uint4* lo4 = reinterpret_cast<const uint4*>(lo);
+    const uint4* hi4 = reinterpret_cast<const uint4*>(hi);
+    for (int v = first; v < n / 4; v += stride) {
+      const uint4 a = __ldg(lo4 + v);
+      const uint4 b = hi != nullptr ? __ldg(hi4 + v) : make_uint4(0u, 0u, 0u, 0u);
+      count(a.x, b.x); count(a.y, b.y); count(a.z, b.z); count(a.w, b.w);
+    }
+  } else {
+    for (int i = first; i < n; i += stride)
+      count(__ldg(lo + i), hi != nullptr ? __ldg(hi + i) : 0u);
+  }
+  __syncthreads();
+  for (int j = threadIdx.x; j < span; j += kThreads) {
+    int s = 0;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) s += smem[w * span + j];
+    if (s) atomicAdd(&counts[j], s);
+  }
+  for (int j = threadIdx.x; j < bins; j += kThreads)
+    if (tiles[j]) atomicAdd(&hist[j], tiles[j]);
+  // every block's sums are in device memory before its ticket
+  __threadfence();
+  __syncthreads();
+  __shared__ bool last;
+  if (threadIdx.x == 0) last = atomicAdd(done, 1u) == gridDim.x - 1;
+  __syncthreads();
+  if (!last) return;
+  __threadfence();
+  __shared__ int warp_sums[kWarps];
+  const int per = (bins + kThreads - 1) / kThreads;
+  const int b0 = min(bins, (int)threadIdx.x * per), b1 = min(bins, b0 + per);
+  int sum = 0;
+  for (int b = b0; b < b1; ++b) sum += __ldcg(hist + b);  // L2: other blocks' adds
+  int run = block_excl_scan(sum, warp_sums);
+  for (int b = b0; b < b1; ++b) {
+    bounds[b] = run;
+    run += __ldcg(hist + b);
   }
 }
 
@@ -421,9 +530,81 @@ extern "C" int gs_radix_scatter(const void* keys, const void* vals, int nv, int 
   uint32_t* ov = static_cast<uint32_t*>(out_vals);
   const int wide = (reinterpret_cast<uintptr_t>(keys) & 15u) == 0;  // 16-byte loads
   if (bits == 8) {
-    radix_scatter<8><<<chunks_of(n), kThreads, 0, s>>>(k, v, nv, n, shift, c, st, ok, ov, wide);
+    radix_scatter<8><<<chunks_of(n), kThreads, 0, s>>>(k, v, nv, 0, n, shift, c, st, ok, ov,
+                                                       wide, nullptr);
   } else {
-    radix_scatter<4><<<chunks_of(n), kThreads, 0, s>>>(k, v, nv, n, shift, c, st, ok, ov, wide);
+    radix_scatter<4><<<chunks_of(n), kThreads, 0, s>>>(k, v, nv, 0, n, shift, c, st, ok, ov,
+                                                       wide, nullptr);
   }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The record sort's passes (8-bit digits): gs_radix_scatter's pass, and
+// besides: iota = 1 appends a payload row that is each key's input
+// position (out_vals then has nv + 1 rows); out_keys may be null (the last
+// pass stores no keys); inv_out, when not null, gets inv_out[source] =
+// slot, the last payload row read as the source index. state must be
+// cleared before the launch (gs_record_counts clears every pass's state).
+// Returns the first CUDA error.
+extern "C" int gs_record_scatter(const void* keys, const void* vals, int nv, int iota, int n,
+                                 int shift, const void* counts, void* state, void* out_keys,
+                                 void* out_vals, void* inv_out, void* stream) {
+  if (!digit_ok(shift, 8) || nv < 0 || (iota != 0 && iota != 1) || n < 0 ||
+      (inv_out != nullptr && nv + iota < 1))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (n == 0) return 0;
+  const int wide = (reinterpret_cast<uintptr_t>(keys) & 15u) == 0;
+  radix_scatter<8><<<chunks_of(n), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint32_t*>(keys), static_cast<const uint32_t*>(vals), nv, iota, n,
+      shift, static_cast<const int32_t*>(counts), static_cast<u64*>(state),
+      static_cast<uint32_t*>(out_keys), static_cast<uint32_t*>(out_vals), wide,
+      static_cast<int32_t*>(inv_out));
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The record sort's count (see record_counts): lo, hi: n u32 words (hi
+// null where hi_passes is 0), 1 <= lo_passes <= 4, 0 <= hi_passes <= 4;
+// counts: (lo_passes + hi_passes, 256) int32, row p the counts of the
+// digit p of lo, then those of hi; hist: `bins` int32; done: one u32; all
+// three must be zero at the launch: `clear` (clear_bytes of zeros, set on
+// the stream first) must cover them. bounds: `bins` int32, written.
+// n >= 1. One clear, one launch. Returns the first CUDA error.
+extern "C" int gs_record_counts(const void* lo, const void* hi, int n, int lo_passes,
+                                int hi_passes, int tile_shift, int bins, void* counts,
+                                void* hist, void* done, void* bounds, void* clear,
+                                long long clear_bytes, void* stream) {
+  if (n < 1 || lo_passes < 1 || lo_passes > 4 || hi_passes < 0 || hi_passes > 4 ||
+      (hi == nullptr) != (hi_passes == 0) || tile_shift < 0 || tile_shift > 31 ||
+      bins < 1 || clear_bytes < 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const size_t smem = sizeof(int) * ((size_t)kWarps * (lo_passes + hi_passes) * 256 + bins);
+  int device = 0, sms = 0, most = 0;
+  cudaError_t e = cudaGetDevice(&device);
+  if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&most, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  if (smem > (size_t)most) return static_cast<int>(cudaErrorInvalidValue);
+  static size_t smem_set[64] = {};  // the largest size allowed so far, a device
+  if (smem > 48 * 1024 && (device >= 64 || smem > smem_set[device])) {
+    e = cudaFuncSetAttribute(record_counts, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)smem);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    if (device < 64) smem_set[device] = smem;
+  }
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (clear_bytes > 0) {
+    e = cudaMemsetAsync(clear, 0, (size_t)clear_bytes, s);
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
+  const bool aligned = (reinterpret_cast<uintptr_t>(lo) & 15u) == 0 &&
+                       (reinterpret_cast<uintptr_t>(hi) & 15u) == 0;
+  const int wide = aligned && n % 4 == 0;
+  const int groups = wide ? n / 4 : n;
+  const int grid = std::max(1, std::min(2 * sms, (groups + kThreads - 1) / kThreads));
+  record_counts<<<grid, kThreads, smem, s>>>(
+      static_cast<const uint32_t*>(lo), static_cast<const uint32_t*>(hi), n, wide, lo_passes,
+      hi_passes, tile_shift, bins, static_cast<int32_t*>(counts), static_cast<int32_t*>(hist),
+      static_cast<unsigned int*>(done), static_cast<int32_t*>(bounds));
   return static_cast<int>(cudaGetLastError());
 }

@@ -8,23 +8,27 @@ Stage map, kernels in ``ops/kernels`` (forward / backward):
        splat table               (torch.sort / one scatter)         [N]
     -> prefix sum of duplicate counts    (kernel: scan / integers, none)
     -> expand to splat-major records     (kernel: expand / segsum) [C]
-    -> stable record sort                (see below / one scatter)  [C]
-    -> per-tile bounds                   (searchsorted / integers, none)
+    -> stable record sort + bounds       (see below / record_unsort) [C]
     -> tile compositor                   (kernel: composite / composite_bwd)
     -> assemble_image
 
 The record sort orders by (tile, depth). By default records carry their own
-depth and the key is the exact pair (``depth_key="pair"``, one int64) or
-one u32, tile * 2^22 + 22-bit depth (``"packed"``); overflow past
-``capacity`` then drops records in splat order. With
-``hoist_depth_sort=True`` the splat table is depth-sorted first, records
-come out depth-ordered, the record sort is a stable sort on the tile id
-alone, and overflow drops the farthest records. The single-key sorts
-(packed, hoisted) run on ``torch.sort`` (``record_sort="lax"``) or on the
-port's onesweep radix sort (``"radix"``: kernel radix_counts once, then
-radix_scatter once a pass); the packed ``"lax"`` sort can carry
-the fields quantised to five u32 words (``sort_payload="q16"``, inference
-only). ``stats["overflow"]`` reports dropped records.
+depth and the key is the exact pair (``depth_key="pair"``: the tile id
+and the depth's order-kept bits, two u32 words) or one u32, tile * 2^22 +
+22-bit depth (``"packed"``); the expansion kernel writes the key word,
+and the record sort stage (``kernels/record_sort.py``, either
+``record_sort`` route) sorts by it on the port's kernels: one count of
+every pass's digits and of every tile, whose last block writes the bounds,
+a radix_scatter a pass, then one gather of the nine field rows by the
+sorted index, and the same gather of the cotangents back. Overflow past
+``capacity`` then drops records in splat order. With ``hoist_depth_sort=True`` the splat table is
+depth-sorted first, records come out depth-ordered, the record sort is a
+stable sort on the tile id alone, and overflow drops the farthest records;
+it runs on ``torch.sort`` (``record_sort="lax"``) or on the port's onesweep
+radix sort (``"radix"``: kernel radix_counts once, then radix_scatter once
+a pass). The packed ``"lax"`` sort can carry the fields quantised to five
+u32 words (``sort_payload="q16"``, inference only, ``torch.sort``).
+``stats["overflow"]`` reports dropped records.
 
 The frame is differentiable with respect to every float parameter: each
 kernel with a gradient sits in a ``torch.autograd.Function`` whose backward
@@ -33,7 +37,7 @@ is a kernel too. Sort keys (tile, depth) and all statistics are detached.
 
 from __future__ import annotations
 
-from typing import Dict, NamedTuple, Tuple
+from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -44,6 +48,7 @@ from openglgaussiansplattingrenderer_tpu_torch.ops.compositing import (
 )
 from openglgaussiansplattingrenderer_tpu_torch.ops.kernels import composite as kc
 from openglgaussiansplattingrenderer_tpu_torch.ops.kernels import radix_sort as rx
+from openglgaussiansplattingrenderer_tpu_torch.ops.kernels import record_sort as rs
 from openglgaussiansplattingrenderer_tpu_torch.ops.kernels import records as kr
 from openglgaussiansplattingrenderer_tpu_torch.ops.kernels import scan as ks
 from openglgaussiansplattingrenderer_tpu_torch.ops.kernels import table as kt
@@ -121,15 +126,26 @@ def depth_sort_table(table, prep):
             depth), prep["counts"][si].contiguous()
 
 
+def record_key(cfg: RenderConfig) -> Optional[str]:
+    """The key of the record sort stage (``kernels/record_sort.py``) under
+    ``cfg``: "pair" or "packed", or None where another sort runs
+    (``hoist_depth_sort``, q16)."""
+    if cfg.hoist_depth_sort or cfg.sort_payload == "q16":
+        return None
+    return "packed" if cfg.depth_key == "packed" else "pair"
+
+
 def expand_depth_records(params: Dict[str, torch.Tensor], view, vp, focal_x,
                          focal_y, tan_fovx, tan_fovy, width: int, height: int,
-                         cfg: RenderConfig, *, stop_after: str | None = None):
+                         cfg: RenderConfig, *, stop_after: str | None = None,
+                         key: str | None = None):
     """Preprocess, prefix sum and expansion to splat-major records.
 
     Returns (fields (9, C), tile (C,) int32, depth (C,), info) with info
-    holding ``prep``, ``total`` and ``total_all`` (device scalars); with
-    ``stop_after`` one of "prep", "sort1", "cumsum", "expand", a
-    ``Stopped`` (``render_fast`` says what each holds).
+    holding ``prep``, ``total`` and ``total_all`` (device scalars), and with
+    ``key`` ("pair", "packed") ``sort_word``, the record sort's word the
+    expansion wrote; with ``stop_after`` one of "prep", "sort1", "cumsum",
+    "expand", a ``Stopped`` (``render_fast`` says what each holds).
     """
     if stop_after is not None and stop_after not in STAGES:
         # the JAX package renders the whole frame then
@@ -156,11 +172,13 @@ def expand_depth_records(params: Dict[str, torch.Tensor], view, vp, focal_x,
     total_all = cum_incl[-1] if n else torch.zeros(
         (), dtype=torch.int32, device=cum_incl.device)
     total = torch.clamp_max(total_all, kw["capacity"])
-    rec_f, rec_t, rec_d = kr.expand(*table, cum_incl, **kw)
+    rec_f, rec_t, rec_d, *word = kr.expand(*table, cum_incl, **kw, key=key)
     if stop_after == "expand":
         return Stopped(rec_f, {"tile": rec_t, "depth": rec_d})
-    return rec_f, rec_t, rec_d, {"prep": prep, "total": total,
-                                 "total_all": total_all}
+    info = {"prep": prep, "total": total, "total_all": total_all}
+    if word:
+        info["sort_word"] = word[0]
+    return rec_f, rec_t, rec_d, info
 
 
 def check_sort_config(cfg: RenderConfig) -> None:
@@ -181,14 +199,22 @@ def check_sort_config(cfg: RenderConfig) -> None:
 
 
 def sort_records(rec_f, rec_t, rec_d, width: int, height: int,
-                 cfg: RenderConfig):
-    """Stable (tile, depth) record sort and per-tile bounds.
+                 cfg: RenderConfig, word: torch.Tensor | None = None):
+    """Stable (tile, depth) record sort and per-tile bounds. ``word`` is the
+    expansion's sort word (``expand_depth_records(key=record_key(cfg))``);
+    where it is not given the stage builds it from ``rec_t`` and ``rec_d``.
 
     Returns (sorted fields (9, C), bounds (T+1,) int32)."""
     check_sort_config(cfg)
     t = cfg.num_tiles
     dev = rec_f.device
     radix = cfg.record_sort == "radix"
+    key = record_key(cfg)
+    if key is not None:
+        # the record sort stage: pair, or packed on either route (the
+        # "radix" route's plain version on the CPU is the kernels' passes)
+        return rs.record_sort(rec_f, rs.words_of(rec_t, rec_d, key, word), t, key,
+                              passes_model=radix)
     if cfg.hoist_depth_sort:
         # records arrive depth-ordered, so a stable sort on the tile id alone
         # suffices
@@ -197,25 +223,12 @@ def sort_records(rec_f, rec_t, rec_d, width: int, height: int,
         else:
             sk, _, sf = kr.sort_with_payload(rec_t, rec_f)
         tile_bnd = torch.arange(t + 1, dtype=torch.int32, device=dev)
-    elif cfg.depth_key == "packed":
-        # u32 key tile * 2^22 + 22-bit depth (fastpath.py "packed")
+    else:
+        # q16: the packed key, u32 tile * 2^22 + 22-bit depth, on torch.sort
         tile_bnd = (torch.arange(t + 1, dtype=torch.int64, device=dev)
                     << kr.PACKED_DEPTH_BITS)
-        if radix:
-            sk, _, sf = rx.radix_sort_with_payload(
-                kr.packed_key_u32(rec_t, rec_d), rec_f, kr.packed_key_bits(t))
-            # the invalid tile's keys have the top bit set: compare unsigned
-            sk = kr.u32_values(sk)
-        elif cfg.sort_payload == "q16":
-            wp, hp = padded_dims(width, height, cfg)
-            sk, sf = kr.sort_records_q16(kr.packed_key(rec_t, rec_d), rec_f, wp, hp)
-        else:
-            sk, _, sf = kr.sort_with_payload(kr.packed_key(rec_t, rec_d), rec_f)
-    else:
-        # "pair" (and "reference", which the JAX fast path also sorts as
-        # the exact pair): lexicographic (tile, float depth)
-        sk, _, sf = kr.sort_with_payload(kr.pair_key(rec_t, rec_d), rec_f)
-        tile_bnd = torch.arange(t + 1, dtype=torch.int64, device=dev) << 32
+        wp, hp = padded_dims(width, height, cfg)
+        sk, sf = kr.sort_records_q16(kr.packed_key(rec_t, rec_d), rec_f, wp, hp)
     bounds = torch.searchsorted(sk, tile_bnd, right=False).to(torch.int32)
     return sf, bounds
 
@@ -247,7 +260,7 @@ def render_fast(params: Dict[str, torch.Tensor], view, vp, focal_x, focal_y,
     """
     stage = expand_depth_records(
         params, view, vp, focal_x, focal_y, tan_fovx, tan_fovy, width, height,
-        cfg, stop_after=stop_after)
+        cfg, stop_after=stop_after, key=record_key(cfg))
     if isinstance(stage, Stopped):
         return tuple(stage)
     rec_f, rec_t, rec_d, info = stage
@@ -256,7 +269,8 @@ def render_fast(params: Dict[str, torch.Tensor], view, vp, focal_x, focal_y,
     capacity = rec_f.shape[1]
     t = cfg.num_tiles
 
-    sf, bounds = sort_records(rec_f, rec_t, rec_d, width, height, cfg)
+    sf, bounds = sort_records(rec_f, rec_t, rec_d, width, height, cfg,
+                              word=info.get("sort_word"))
     if stop_after == "sort2":
         return sf[0], {"fields": sf, "bounds": bounds}
     tiled, _, counts_t = composite_sorted(

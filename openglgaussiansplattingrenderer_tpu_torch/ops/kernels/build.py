@@ -38,7 +38,8 @@ SIGNATURES = {
     "gs_cumsum_tile": [],
     "gs_cumsum_i32": [_P, _P, _P, _I, _P],
     "gs_records_items": [],
-    "gs_expand": [_P, _P, _P, _P, _P, _I, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P],
+    "gs_expand": [_P, _P, _P, _P, _P, _I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I,
+                  _P],
     "gs_composite_max_pixels": [],
     "gs_composite_fwd": [_P, _I, _P, _P, _P, _P, _I, _I, _I, _I, _F, _F, _F, _F, _P],
     "gs_composite_bwd": [_P, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _F,
@@ -47,6 +48,9 @@ SIGNATURES = {
     "gs_radix_chunk": [],
     "gs_radix_counts": [_P, _I, _I, _I, _P, _P, _L, _P],
     "gs_radix_scatter": [_P, _P, _I, _I, _I, _I, _P, _P, _L, _P, _P, _P],
+    "gs_record_counts": [_P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _L, _P],
+    "gs_record_scatter": [_P, _P, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P],
+    "gs_record_gather": [_P, _P, _I, _I, _P, _P],
     "gs_bucketer_chunk": [],
     "gs_bucketer_level": [_P, _L, _I, _F, _P, _P],
     "gs_probe_affine": [_P, _P, _L, _P],

@@ -8,7 +8,9 @@ sort, which is ``torch.sort(stable=True)`` on the key plus one gather of
 the fields -- the JAX package's ``SORT_MODE="gather"`` form, proven
 bit-identical to its payload sort. Its gradient scatters the cotangents
 back by the recorded source index. The same sort on the radix-sort kernels
-is ``radix_sort.radix_sort_with_payload``. Also here: the record sort keys
+is ``radix_sort.radix_sort_with_payload``; the frame's default record sort
+is the stage of ``record_sort.py``, on the sort words the expansion writes
+(``expand(..., key=)``, ``sort_word``). Also here: the record sort keys
 (``pair_key``, ``packed_key`` and its u32 form) and the q16 inference mode,
 which sorts the nine fields packed into five u32 words
 (``sort_records_q16``; plain torch, as it is plain ``jnp`` in the JAX
@@ -58,17 +60,25 @@ def _ln_alpha_min(alpha_min: float) -> float:
     return float(np.float32(np.log(alpha_min)))
 
 
+# The record sort's keys (``fastpath.sort_records``): the expansion writes
+# one u32 word a record for them, 1 for the pair key's low word, 2 for the
+# packed key (``sort_word``); 0 writes none.
+KEY_MODES = {None: 0, "pair": 1, "packed": 2}
+
+
 def expand_plain(fields, tile_min, tile_ext, depth, cum_incl, *, capacity,
-                 gx, num_tiles, pw, ph, alpha_min):
+                 gx, num_tiles, pw, ph, alpha_min, key=None):
     """The plain PyTorch version of ``expand``: a searchsorted gather and
-    the same cull arithmetic, in the same order."""
+    the same cull arithmetic, in the same order; with ``key``, the sort
+    word of each record from its tile and depth (``sort_word``)."""
     dev = fields.device
     n = fields.shape[1]
     r = torch.arange(capacity, dtype=torch.int32, device=dev)
     if n == 0:
-        return (torch.zeros((NUM_FIELDS, capacity), dtype=torch.float32, device=dev),
-                torch.full((capacity,), num_tiles, dtype=torch.int32, device=dev),
-                torch.zeros(capacity, dtype=torch.float32, device=dev))
+        out = (torch.zeros((NUM_FIELDS, capacity), dtype=torch.float32, device=dev),
+               torch.full((capacity,), num_tiles, dtype=torch.int32, device=dev),
+               torch.zeros(capacity, dtype=torch.float32, device=dev))
+        return out if key is None else out + (sort_word(out[1], out[2], key),)
     total = torch.clamp_max(cum_incl[-1], capacity)
     s = torch.searchsorted(cum_incl, r, right=True).clamp_max(n - 1)
     cum_excl = torch.cat([cum_incl.new_zeros(1), cum_incl[:-1]])
@@ -97,12 +107,13 @@ def expand_plain(fields, tile_min, tile_ext, depth, cum_incl, *, capacity,
     keep = valid & (qmin * 0.49999 <= ln_ratio + 1e-4)
     tile = torch.where(keep, ty * gx + tx, torch.full_like(ty, num_tiles))
     zero = torch.zeros((), dtype=torch.float32, device=dev)
-    return (torch.where(valid[None, :], f, zero), tile.to(torch.int32),
-            torch.where(valid, depth[s], zero))
+    out = (torch.where(valid[None, :], f, zero), tile.to(torch.int32),
+           torch.where(valid, depth[s], zero))
+    return out if key is None else out + (sort_word(out[1], out[2], key),)
 
 
 def expand_fwd(fields, tile_min, tile_ext, depth, cum_incl, *, capacity, gx,
-               num_tiles, pw, ph, alpha_min):
+               num_tiles, pw, ph, alpha_min, key=None):
     """The expansion alone (no autograd graph): the CUDA kernel for CUDA
     tensors, ``expand_plain`` for CPU tensors."""
     n = fields.shape[1]
@@ -113,22 +124,26 @@ def expand_fwd(fields, tile_min, tile_ext, depth, cum_incl, *, capacity, gx,
     build.expect("expand cum_incl", cum_incl, torch.int32, (n,))
     if capacity >= 2 ** 31:
         raise ValueError(f"expand: capacity {capacity} exceeds int32 indices")
+    if key not in KEY_MODES:
+        raise ValueError(f"expand: key must be one of {tuple(KEY_MODES)}, got {key!r}")
     args = dict(capacity=capacity, gx=gx, num_tiles=num_tiles, pw=pw, ph=ph,
-                alpha_min=alpha_min)
+                alpha_min=alpha_min, key=key)
     if not build.on_cuda("expand", fields, tile_min, tile_ext, depth, cum_incl):
         return expand_plain(fields, tile_min, tile_ext, depth, cum_incl, **args)
     dev = fields.device
     out_f = torch.empty((NUM_FIELDS, capacity), dtype=torch.float32, device=dev)
     out_t = torch.empty(capacity, dtype=torch.int32, device=dev)
     out_d = torch.empty(capacity, dtype=torch.float32, device=dev)
+    out_k = None if key is None else torch.empty(capacity, dtype=torch.int32, device=dev)
     lib = _library()
     build.check("expand", lib.gs_expand(
         fields.data_ptr(), tile_min.data_ptr(), tile_ext.data_ptr(),
         depth.data_ptr(), cum_incl.data_ptr(), n, out_f.data_ptr(),
-        out_t.data_ptr(), out_d.data_ptr(), capacity, gx, num_tiles, pw, ph,
-        _ln_alpha_min(alpha_min), build.stream_ptr()))
+        out_t.data_ptr(), out_d.data_ptr(), None if out_k is None else out_k.data_ptr(),
+        capacity, gx, num_tiles, pw, ph, _ln_alpha_min(alpha_min), KEY_MODES[key],
+        build.stream_ptr()))
     expand.launches += 1
-    return out_f, out_t, out_d
+    return (out_f, out_t, out_d) if out_k is None else (out_f, out_t, out_d, out_k)
 
 
 def segsum_plain(g: torch.Tensor, cum_incl: torch.Tensor) -> torch.Tensor:
@@ -175,29 +190,30 @@ def segsum(g: torch.Tensor, cum_incl: torch.Tensor) -> torch.Tensor:
 
 class Expand(torch.autograd.Function):
     """``expand_fwd`` with ``segsum`` as its gradient with respect to the
-    splat fields. The tile ids and depths of the records, and the integer
-    inputs, carry no gradient (sort keys are not differentiated)."""
+    splat fields. The tile ids, depths and sort words of the records, and
+    the integer inputs, carry no gradient (sort keys are not
+    differentiated)."""
 
     @staticmethod
     def forward(ctx, fields, tile_min, tile_ext, depth, cum_incl, capacity,
-                gx, num_tiles, pw, ph, alpha_min):
-        out_f, out_t, out_d = expand_fwd(
+                gx, num_tiles, pw, ph, alpha_min, key):
+        out = expand_fwd(
             fields, tile_min, tile_ext, depth, cum_incl, capacity=capacity,
-            gx=gx, num_tiles=num_tiles, pw=pw, ph=ph, alpha_min=alpha_min)
+            gx=gx, num_tiles=num_tiles, pw=pw, ph=ph, alpha_min=alpha_min, key=key)
         ctx.save_for_backward(cum_incl)
-        ctx.mark_non_differentiable(out_t, out_d)
-        return out_f, out_t, out_d
+        ctx.mark_non_differentiable(*out[1:])
+        return out
 
     @staticmethod
-    def backward(ctx, g_fields, _g_tile, _g_depth):
+    def backward(ctx, g_fields, *_g_keys):
         (cum_incl,) = ctx.saved_tensors
-        return (segsum(g_fields.contiguous(), cum_incl),) + (None,) * 10
+        return (segsum(g_fields.contiguous(), cum_incl),) + (None,) * 11
 
 
 def expand(fields: torch.Tensor, tile_min: torch.Tensor, tile_ext: torch.Tensor,
            depth: torch.Tensor, cum_incl: torch.Tensor, *, capacity: int, gx: int,
-           num_tiles: int, pw: int, ph: int, alpha_min: float
-           ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+           num_tiles: int, pw: int, ph: int, alpha_min: float,
+           key: Optional[str] = None) -> Tuple[torch.Tensor, ...]:
     """Splat-major records from the per-splat table.
 
     Record r belongs to splat s with cum_excl[s] <= r < cum_incl[s]; it
@@ -207,12 +223,14 @@ def expand(fields: torch.Tensor, tile_min: torch.Tensor, tile_ext: torch.Tensor,
     are zero with tile ``num_tiles``, and so is the tile of a record whose
     Gaussian cannot reach ``alpha_min`` anywhere in its pw x ph tile.
     Returns (fields (9, C) f32, tile (C,) int32, depth (C,) f32); the
-    fields are differentiable with respect to ``fields``.
+    fields are differentiable with respect to ``fields``. With ``key``
+    ("pair" or "packed") a fourth output, (C,) int32: each record's sort
+    word (``sort_word``), written by the kernel from the record it holds.
     ``expand.launches`` counts launches of the expansion kernel,
     ``segsum.launches`` those of its transpose.
     """
     return Expand.apply(fields, tile_min, tile_ext, depth, cum_incl, capacity,
-                        gx, num_tiles, pw, ph, alpha_min)
+                        gx, num_tiles, pw, ph, alpha_min, key)
 
 
 expand.launches = 0
@@ -307,6 +325,26 @@ def packed_key(tile: torch.Tensor, depth: torch.Tensor) -> torch.Tensor:
     q = 1 << PACKED_DEPTH_BITS
     qd = torch.clamp_max((depth.clamp(0.0, 1.0) * float(q)).to(torch.int64), q - 1)
     return tile.to(torch.int64) * q + qd
+
+
+def depth_order_bits(depth: torch.Tensor) -> torch.Tensor:
+    """``pair_key``'s low 32 bits as int32 bit patterns: the float's bits
+    with the sign bit set where it was clear and every bit inverted where
+    it was set, so that unsigned order is float order."""
+    bits = depth.contiguous().view(torch.int32)
+    return torch.where(bits >= 0, bits | -(1 << 31), ~bits)
+
+
+def sort_word(tile: torch.Tensor, depth: torch.Tensor, key: str) -> torch.Tensor:
+    """The record sort's word of each record, as int32 bit patterns: for
+    ``"pair"`` the pair key's low word (``depth_order_bits``; its high word
+    is the tile id), for ``"packed"`` the packed key (``packed_key_u32``).
+    What ``expand(..., key=)`` writes."""
+    if key == "pair":
+        return depth_order_bits(depth)
+    if key == "packed":
+        return packed_key_u32(tile, depth)
+    raise ValueError(f"sort_word: key must be 'pair' or 'packed', got {key!r}")
 
 
 def u32_bits(x: torch.Tensor) -> torch.Tensor:

@@ -14,7 +14,10 @@ its first batch, records crowded on pixels that have saturated while others
 stay alive, records centred on patch and tile borders, a gradient
 buffer that was not zero, a batch above the default 48 KB of shared memory,
 overflow in the
-segment sum, run-to-run equality, training on the card, the single-pass
+segment sum, run-to-run equality, training on the card, the record sort
+stage (both keys, 512 and 2,040 tiles, ragged and one-record sizes, words
+off the 16-byte grid, both cotangent modes, the frame's gradients against
+the plain stage), the single-pass
 prefix sum at tile edges, on unaligned views, on wrapping sums and 200
 launches running, the onesweep radix sort's counts (views off the 16-byte
 grid too) and scatter at ragged sizes, on sorted, reversed, constant and
@@ -41,6 +44,7 @@ from openglgaussiansplattingrenderer_tpu_torch import convert
 from openglgaussiansplattingrenderer_tpu_torch.io import ply as ply_io
 from openglgaussiansplattingrenderer_tpu_torch.ops.kernels import composite as kc
 from openglgaussiansplattingrenderer_tpu_torch.ops.kernels import radix_sort as rx
+from openglgaussiansplattingrenderer_tpu_torch.ops.kernels import record_sort as rs
 from openglgaussiansplattingrenderer_tpu_torch.ops.kernels import records as kr
 from openglgaussiansplattingrenderer_tpu_torch.ops.kernels import scan as ks
 from openglgaussiansplattingrenderer_tpu_torch.ops.kernels import table as kt
@@ -641,14 +645,18 @@ def test_single_key_sort_frames_card_vs_cpu(card, name):
     _, on_card, args = _small(card)
     _, on_cpu, _ = _small("cpu")
     h0, s0 = rx.radix_counts.launches, rx.radix_scatter.launches
+    r0 = rs.record_sort.launches
     with torch.no_grad():
         img, stats = render_arrays(on_card, *args, cfg)
-        used = (rx.radix_counts.launches - h0, rx.radix_scatter.launches - s0)
+        used = (rx.radix_counts.launches - h0, rx.radix_scatter.launches - s0,
+                rs.record_sort.launches - r0)
         img_like, _ = render_arrays(on_card, *args, like)
         img_cpu, stats_cpu = render_arrays(on_cpu, *args, cfg)
-    # one count and a scatter a pass: 4 passes of the packed key, 2 of the tile
-    assert used == ((0, 0) if cfg.record_sort == "lax" else
-                    (1, 4) if name.startswith("packed") else (1, 2))
+    # the packed key runs the record sort stage on either route: one count,
+    # a scatter a pass (4), one gather; the hoisted radix route one count and
+    # a scatter a pass of the tile id (2)
+    assert used == ((0, 0, 6) if name.startswith("packed") else
+                    (0, 0, 0) if cfg.record_sort == "lax" else (1, 2, 0))
     assert torch.equal(img, img_like)            # the engine does not show
     assert float((img.cpu() - img_cpu).abs().max()) <= 1e-4
     assert all(stats[k].item() == stats_cpu[k].item() for k in stats_cpu)
@@ -656,6 +664,82 @@ def test_single_key_sort_frames_card_vs_cpu(card, name):
     for k, want in g_cpu.items():
         err = float((g_card[k].cpu() - want).abs().max() / want.abs().max())
         assert err <= 5e-3, (k, err)
+
+
+def _sort_records(key, tiles, c, seed):
+    """tile ids (a fifth the invalid tile, a run of one tile), depths with
+    ties and both zeros, nine field rows."""
+    g = torch.Generator().manual_seed(seed)
+    tile = torch.randint(0, tiles, (c,), generator=g, dtype=torch.int32)
+    tile[torch.rand(c, generator=g) < 0.2] = tiles
+    tile[c // 3:c // 3 + 300] = 5
+    values = torch.tensor([-1.5, -0.0, 0.0, 0.25, 0.25, 0.7, 1.0, 2.0e9])
+    depth = torch.where(torch.rand(c, generator=g) < 0.5,
+                        values[torch.randint(0, 8, (c,), generator=g)],
+                        torch.rand(c, generator=g))
+    return tile, depth, torch.randn((9, c), generator=g)
+
+
+@pytest.mark.parametrize("key,tiles", [("pair", 512), ("pair", 2040), ("packed", 512),
+                                       ("packed", 37)])
+@pytest.mark.parametrize("c", [1, 3, rx.CHUNK - 1, rx.CHUNK, rx.CHUNK + 5, 300_001])
+def test_record_sort_kernels_match_plain(card, key, tiles, c):
+    tile, depth, fields = _sort_records(key, tiles, c, c + tiles)
+    words_cpu = rs.words_of(tile, depth, key)
+    want = rs.record_sort_plain(fields, words_cpu, tiles, key)
+    words = tuple(w.to(card) for w in words_cpu)
+    f = fields.to(card)
+    before = rs.record_sort.launches
+    sf, bounds, inv = rs.record_sort_fwd(f, words, tiles, key)
+    lo_p, hi_p = rs.passes(tiles, key)
+    assert rs.record_sort.launches - before == 2 + lo_p + hi_p
+    assert torch.equal(sf.cpu(), want[0]) and torch.equal(bounds.cpu(), want[1])
+    assert torch.equal(inv.cpu(), rs.inverse_plain(want[2]))
+    again = rs.record_sort_fwd(f, words, tiles, key)
+    assert all(torch.equal(a, b) for a, b in zip(again, (sf, bounds, inv)))
+    gc = torch.randn((9, c), generator=torch.Generator().manual_seed(4))
+    for mode, paired in (("f32", 0), ("bf16", 8)):
+        old, rs.kr.BWD_COT_PACK = rs.kr.BWD_COT_PACK, mode
+        try:
+            got = rs.record_unsort(gc.to(card), inv)
+        finally:
+            rs.kr.BWD_COT_PACK = old
+        assert torch.equal(got.cpu(), rs.unsort_plain(gc, want[2], paired)), mode
+
+
+@pytest.mark.parametrize("key", ["pair", "packed"])
+def test_record_sort_kernels_on_views_off_the_16_byte_grid(card, key):
+    # the counts' scalar loads and the scatter's narrow loads
+    c = 50_001
+    tile, depth, fields = _sort_records(key, 512, c + 1, 9)
+    words = rs.words_of(tile, depth, key)
+    want = rs.record_sort_plain(fields[:, 1:].contiguous(),
+                                tuple(w[1:] for w in words), 512, key)
+    on = tuple(w.to(card)[1:] for w in words)
+    assert on[0].data_ptr() % 16 == 4
+    sf, bounds, inv = rs.record_sort_fwd(fields[:, 1:].contiguous().to(card), on, 512, key)
+    assert torch.equal(sf.cpu(), want[0]) and torch.equal(bounds.cpu(), want[1])
+    assert torch.equal(inv.cpu(), rs.inverse_plain(want[2]))
+
+
+@pytest.mark.parametrize("depth_key", ["pair", "packed"])
+def test_record_sort_stage_in_the_frame_and_its_gradients(card, depth_key):
+    # the kernel stage and the plain stage give the same frame and
+    # gradients, bit for bit, on the card
+    cfg = port.RenderConfig(chunk=64, dup_capacity_factor=24.0, depth_key=depth_key)
+    _, on_card, args = _small(card)
+    r0, u0 = rs.record_sort.launches, rs.record_unsort.launches
+    g_kernel = _grads(on_card, args, cfg)
+    assert rs.record_sort.launches > r0 and rs.record_unsort.launches == u0 + 1
+    fwd, unsort = rs.record_sort_fwd, rs.record_unsort
+    rs.record_sort_fwd = (lambda f, w, t, k, passes_model=False, inverse=True:
+                          rs.record_sort_plain(f, w, t, k))
+    rs.record_unsort = lambda g, order, paired_rows=None: rs.unsort_plain(g, order)
+    try:
+        g_plain = _grads(on_card, args, cfg)
+    finally:
+        rs.record_sort_fwd, rs.record_unsort = fwd, unsort
+    assert all(torch.equal(g_kernel[k], g_plain[k]) for k in g_plain)
 
 
 def test_q16_frame_card_vs_cpu_and_its_backward_raises(card):

@@ -117,6 +117,19 @@ def test_expand_matches_pallas(seed, n, w, h):
     assert (tile[total:] == cfg.num_tiles).all()
     assert (rec_sm[9, total:] == cfg.num_tiles).all()
     assert not fields[:, total:].any() and not depth[total:].any()
+    # the record sort's key word the expansion writes beside them, from the
+    # JAX slab's tile and depth rows: the pair key's low word (the depth's
+    # bits, order-kept) and the packed key
+    j_tile, j_depth = rec_sm[9, :total].astype(np.uint32), rec_sm[10, :total]
+    bits = j_depth.view(np.uint32)
+    q = np.uint32(1 << kr.PACKED_DEPTH_BITS)
+    want = {"pair": np.where(bits >> 31, ~bits, bits | np.uint32(1 << 31)),
+            "packed": j_tile * q + np.minimum(
+                (np.clip(j_depth, 0.0, 1.0) * float(q)).astype(np.uint32), q - 1)}
+    for key, w in want.items():
+        out = kr.expand(*table, cum, **kw, key=key)
+        assert len(out) == 4 and torch.equal(out[0], fields) and torch.equal(out[1], tile)
+        np.testing.assert_array_equal(out[3][:total].numpy().view(np.uint32), w)
 
 
 @pytest.mark.parametrize("seed,n,w,h", SCENES)
