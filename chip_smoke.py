@@ -34,15 +34,21 @@ csrc`` (nvcc, at first use), then:
    also on the device alone, the scatter's stored bytes over its device
    time a pass, and the whole sort and the sort of the tile ids against
    ``torch.sort(stable=True)`` element for element, each between events and
-   on the device alone; the record sort stage (``kernels/record_sort.py``:
-   the counts launch with the bounds, a radix scatter a pass, the row gather;
-   the un-sort) on the uniform and clustered flagship records, pair and
-   packed keys, and in phase 6 the 1080p records (pair: the packed key holds
-   512 tiles), its sorted fields, bounds and inverse index bit-equal to the
-   plain stage (torch.sort of the int64 key, index_select, searchsorted) and
-   its un-sort to index_copy_ in both cotangent modes, each timed between
-   events, on the device alone and launch by launch, beside the plain stage
-   call by call and the library calls it replaced; the bucketing-level probe kernel exact on 64
+   on the device alone; the record sort stage (``kernels/record_sort.py``)
+   by splat (the expansion's splat ids, the counts launch with the bounds,
+   a radix scatter a pass, the gathers of the sorted records' splat ids
+   and of their fields from the pair layout the splat table kernel
+   stores; the un-sort) beside the form it replaced (``field_stage``: the
+   row gather of the records' nine field rows by the sorted index), on the
+   uniform and clustered flagship records, pair and packed keys, and in
+   phase 6 the 1080p records (pair: the packed key holds 512 tiles): the
+   expansion's splat ids and the pair layout bit-equal to their plain
+   versions, both forms' sorted fields, bounds and inverse index bit-equal
+   to the plain stage (torch.sort of the int64 key, index_select,
+   searchsorted) and the un-sort to index_copy_ in both cotangent modes,
+   each timed between events, on the device alone and launch by launch,
+   beside the plain stage call by call and the library calls it replaced;
+   the bucketing-level probe kernel exact on 64
    chunks and timed through its probe, between events and on the device
    alone at 6,291,456 records, and the
    build-cache probe with its kernel, timed at (8, 128) and at 1,000,003
@@ -62,7 +68,7 @@ csrc`` (nvcc, at first use), then:
    scenes), with every kernel launch counter reset just before and read
    just after; checks zero overflow, a finite image with coverage, every
    forward kernel launched (the splat table once a frame, the record sort
-   stage's 2 + 6 launches), the uniform frame against the all-plain
+   stage's 2 + 6 launches without a gradient), the uniform frame against the all-plain
    pipeline, and a small frame against the port's CPU path; the default
    frame and its gradients bit-equal on the record sort kernels and on the
    plain stage, and no torch.sort, index_select, searchsorted or index_copy_
@@ -83,8 +89,11 @@ csrc`` (nvcc, at first use), then:
    to name the threshold flip behind it; the counts reset before the
    kernels' frames and read after, and the oracle launching none;
 4. prints each flagship scene's per-stage device times of one forward +
-   backward (CUDA events: "sort" and "sort bwd" are the record sort stage),
-   and in phase 6 the 1080p scene's;
+   backward (CUDA events: "table" stores the pair layout too, "expand" is
+   the expansion's splat-id mode, "sort" the record sort stage by splat,
+   "sort bwd" its un-sort and "expand bwd (segsum)" the segment sum, the
+   two halves of the stage's one autograd backward), and in phase 6 the
+   1080p scene's;
 5. drives the training path: five Adam steps of ``make_train_step`` (L1 +
    D-SSIM, per-splat densification statistic) on the uniform flagship scene
    with perturbed colours against its clean render, counters reset just
@@ -322,7 +331,8 @@ KERNELS = {
                       f"{TPU_PKG}/ops/pallas/records.py:189"),
 }
 # the sources of the record sort stage's launches: the counts and the
-# passes (kernels 6 and 7's file), the row gather of the fields
+# passes (kernels 6 and 7's file), the gathers of the splat ids and of the
+# fields
 RECORD_SORT_SOURCES = (f"{PKG}/csrc/radix_sort.cu", f"{PKG}/csrc/record_gather.cu")
 # device kernel names of the calls the record sort stage replaced
 # (torch.sort, index_select, searchsorted, index_copy_), lower case: none
@@ -484,19 +494,20 @@ def device_launches(fn, runs: int = 5):
 @contextlib.contextmanager
 def plain_record_sort():
     """The record sort stage on its plain version (torch.sort, index_select,
-    searchsorted; index_copy_ back) on CUDA tensors too, inside the block:
+    searchsorted; index_copy_ back), on CUDA tensors too, inside the block:
     the route the kernels are held to, frame for frame and step for step."""
     from openglgaussiansplattingrenderer_tpu_torch.ops.kernels import record_sort as rs
 
-    fwd, unsort = rs.record_sort_fwd, rs.record_unsort
-    rs.record_sort_fwd = (lambda fields, words, num_tiles, key, passes_model=False,
-                          inverse=True: rs.record_sort_plain(fields, words, num_tiles, key))
+    fwd, unsort = rs.record_sort_splats_fwd, rs.record_unsort
+    rs.record_sort_splats_fwd = (
+        lambda fields, pairs, splat_ids, words, num_tiles, key, passes_model=False,
+        inverse=True: rs.record_sort_splats_plain(fields, splat_ids, words, num_tiles, key))
     rs.record_unsort = (lambda g, order, paired_rows=None:
                         rs.unsort_plain(g, order, rs._paired(paired_rows)))
     try:
         yield
     finally:
-        rs.record_sort_fwd, rs.record_unsort = fwd, unsort
+        rs.record_sort_splats_fwd, rs.record_unsort = fwd, unsort
 
 
 def device_names(fn):
@@ -575,7 +586,7 @@ def kernel_wrappers():
             "bucketer_level": bucketer_probe.bucketer_level,
             "probe_affine": cache_key_probe.probe_affine,
             "splat_table": kt.splat_table, "splat_table_bwd": kt.splat_table_bwd,
-            "record_sort": rs.record_sort, "record_unsort": rs.record_unsort}
+            "record_sort": rs.record_sort_splats, "record_unsort": rs.record_unsort}
 
 
 def reset_launches() -> None:
@@ -635,12 +646,10 @@ class Frame:
     def sorted_records(self):
         """(sorted fields, bounds) through the kernels, as the frame makes them."""
         from openglgaussiansplattingrenderer_tpu_torch.ops import fastpath
-        from openglgaussiansplattingrenderer_tpu_torch.ops.kernels import records as kr
-        from openglgaussiansplattingrenderer_tpu_torch.ops.kernels import scan as ks
 
-        table, counts, ekw = self.table()
-        rec = kr.expand(*table, ks.cumsum(counts), **ekw)
-        return fastpath.sort_records(*rec, *self.size, self.cfg)
+        stage = fastpath.expand_depth_records(self.params, *self.args, self.cfg,
+                                              key=fastpath.record_key(self.cfg))
+        return fastpath.sort_records(*stage, *self.size, self.cfg)
 
     def table(self):
         """((fields, tile_min, tile_ext, depth), counts, expand kwargs)."""
@@ -671,12 +680,18 @@ class Frame:
         """The whole frame through the plain versions of every kernel."""
         from openglgaussiansplattingrenderer_tpu_torch.ops import fastpath
         from openglgaussiansplattingrenderer_tpu_torch.ops.kernels import composite as kc
+        from openglgaussiansplattingrenderer_tpu_torch.ops.kernels import record_sort as rs
         from openglgaussiansplattingrenderer_tpu_torch.ops.kernels import records as kr
         from openglgaussiansplattingrenderer_tpu_torch.ops.kernels import scan as ks
 
         table, counts, ekw = self.table()
         rec = kr.expand_plain(*table, ks.cumsum_plain(counts), **ekw)
-        sf, bounds = fastpath.sort_records(*rec, *self.size, self.cfg)
+        key = fastpath.record_key(self.cfg)
+        if key is None:
+            sf, bounds = fastpath.sort_records(*rec, {}, *self.size, self.cfg)
+        else:
+            sf, bounds, _ = rs.record_sort_plain(rec[0], rs.words_of(*rec[1:], key),
+                                                 self.cfg.num_tiles, key)
         ox, oy, ckw = self.composite_inputs(sf)
         return self.image(kc.composite_plain(sf, bounds, ox, oy, **ckw))
 
@@ -833,6 +848,7 @@ def check_splat_table(name, frame):
 
     from openglgaussiansplattingrenderer_tpu_torch.ops import fastpath
     from openglgaussiansplattingrenderer_tpu_torch.ops.kernels import composite as kc
+    from openglgaussiansplattingrenderer_tpu_torch.ops.kernels import record_sort as rs
     from openglgaussiansplattingrenderer_tpu_torch.ops.kernels import records as kr
     from openglgaussiansplattingrenderer_tpu_torch.ops.kernels import scan as ks
     from openglgaussiansplattingrenderer_tpu_torch.ops.kernels import table as kt
@@ -892,16 +908,20 @@ def check_splat_table(name, frame):
     diff_keys = [k for k in kt.INPUTS[:7] if inputs[k] is not None]
     gen = torch.Generator(device=view.device).manual_seed(12)
     cots = {"seeded": torch.randn((kr.NUM_FIELDS, n), generator=gen, device=view.device)}
-    table, prep = kt.splat_table(frame.params, *frame.args, frame.cfg)
+    table, prep = kt.splat_table(frame.params, *frame.args, frame.cfg, pairs=True)
     f = table[0].detach().requires_grad_(True)
     kw = fastpath.expand_kwargs(n, *frame.size, frame.cfg)
+    key = fastpath.record_key(frame.cfg)
     with torch.enable_grad():
-        rec = kr.expand(f, *table[1:], ks.cumsum(prep["counts"]), **kw)
-        sf, bounds = fastpath.sort_records(*rec, *frame.size, frame.cfg)
+        cum = ks.cumsum(prep["counts"])
+        sid, rec_t, rec_d, word = kr.expand_ids(*table, cum, **kw, key=key)
+        sf, bounds = rs.record_sort_splats(f, prep["pairs"], sid,
+                                           rs.words_of(rec_t, rec_d, key, word),
+                                           frame.cfg.num_tiles, key, cum)
         ox, oy, ckw = frame.composite_inputs(sf)
         loss = mean_sq_loss(frame.image(kc.composite(sf, bounds, ox, oy, **ckw)))
         cots["segsum"] = torch.autograd.grad(loss, f)[0]
-    del table, prep, rec, sf, f
+    del table, prep, sid, rec_t, rec_d, word, sf, f
     bwd = {}
     for what, g in cots.items():
         d_got = kt.splat_table_bwd(inputs, view, vp, spec, g)
@@ -1089,55 +1109,116 @@ def record_sort_bound(c: int, key: str, num_tiles: int) -> dict:
     return bound(c * (76 + 4 * words) + 4 * (num_tiles + 1), 3 * (lo_p + hi_p) * c)
 
 
+def field_stage(fields, words, num_tiles, key, inverse=True):
+    """The stage's form before it sorted by splat, for its times beside the
+    stage's: the counts and the passes (``record_sort._order``), then the
+    row gather of the records' own nine field rows by the sorted source
+    index (``gs_record_gather``, the un-sort's kernel). Counts no launch.
+    Returns (sorted fields, bounds, inverse or None)."""
+    import types
+
+    from openglgaussiansplattingrenderer_tpu_torch.ops.kernels import record_sort as rs
+
+    si, bounds, inv = rs._order(words, num_tiles, key, inverse,
+                                types.SimpleNamespace(launches=0))
+    return rs._gather(fields, si, 0, "the (9, C) form"), bounds, inv
+
+
 def check_record_sort(name, frame, keys=("pair", "packed")):
     """The record sort stage (kernels/record_sort.py) on the frame's own
-    records, for each key: the expansion's sort words bit-equal to its
-    plain version's; the kernels' sorted fields and bounds bit-equal to the
-    plain stage (torch.sort of the int64 key, index_select, searchsorted)
-    and their inverse index to the inverse of its source index; the
-    un-sort bit-equal to index_copy_ in both cotangent modes. The forward
-    and the un-sort timed between CUDA events and on the device alone, the
-    forward launch by launch too, beside the plain stage and the library
-    calls the stage replaced, call by call: torch.sort(stable=True) of the
-    int64 key + index_select + searchsorted, and index_copy_. Returns {key:
-    (forward row, un-sort row)}."""
+    records, for each key. Held bit for bit: the expansion's splat-id mode
+    to its plain version and to its field mode; the pair layout the splat
+    table kernel stores to its plain version; the stage (the counts, the
+    passes, the sorted records' splat ids, their fields from the pair
+    layout) and the form it replaced (``field_stage``: the nine field rows
+    gathered by the sorted source index) to the plain stage (torch.sort of
+    the int64 key, index_select, searchsorted) on the field mode's records,
+    the inverse index to the inverse of its source index; the un-sort to
+    index_copy_ in both cotangent modes. Each timed between CUDA events and
+    on the device alone, launch by launch too, beside the plain stage and
+    the library calls the stage replaced, call by call: torch.sort(stable=True)
+    of the int64 key + index_select + searchsorted, and index_copy_.
+    Returns {key: (stage row, un-sort row)}."""
     import torch
 
+    from openglgaussiansplattingrenderer_tpu_torch.ops import fastpath
     from openglgaussiansplattingrenderer_tpu_torch.ops.kernels import record_sort as rs
     from openglgaussiansplattingrenderer_tpu_torch.ops.kernels import records as kr
     from openglgaussiansplattingrenderer_tpu_torch.ops.kernels import scan as ks
+    from openglgaussiansplattingrenderer_tpu_torch.ops.kernels import table as kt
 
     def us(v):
         return "not measured" if v is None else f"{v:.1f}"
 
+    def by_launch(v):
+        return ", ".join(f"{n.split('(')[0][-22:]} {t:.1f}" for n, t in (v or []))
+
+    def launch_us(fn, part):
+        """Device us of the launches of one call of fn whose name holds part."""
+        got = device_launches(fn)
+        return None if got is None else sum(t for n, t in got if part in n)
+
     table, counts, ekw = frame.table()
+    fields = table[0]
+    _, prep = fastpath.splat_table(frame.params, *frame.args, frame.cfg, pairs=True)
+    pairs = prep["pairs"]
+    assert torch.equal(pairs, kt.splat_pairs_plain(fields)), (
+        f"{name}: the pair layout differs from its plain version")
+    del prep
+
+    def table_call(with_pairs):
+        return lambda: fastpath.splat_table(frame.params, *frame.args, frame.cfg,
+                                            pairs=with_pairs)
+
+    table_us = {"table_us": launch_us(table_call(False), "splat_table"),
+                "table_with_pairs_us": launch_us(table_call(True), "splat_table")}
     cum = ks.cumsum(counts)
     t = frame.cfg.num_tiles
+    n = fields.shape[1]
     rows = {}
     for key in keys:
-        got = kr.expand(*table, cum, **ekw, key=key)
+        full = kr.expand(*table, cum, **ekw)
+        ids = kr.expand_ids(*table, cum, **ekw, key=key)
         ref = kr.expand_plain(*table, cum, **ekw, key=key)
-        assert all(torch.equal(a, b) for a, b in zip(got, ref)), (
-            f"{name}: the expansion's {key} outputs differ from the plain version")
+        assert torch.equal(ids[0], kr.splat_ids_plain(cum, ekw["capacity"])) and all(
+            torch.equal(a, b) for a, b in zip(ids[1:], ref[1:])), (
+            f"{name}: the expansion's splat-id mode differs from its plain version")
+        assert all(torch.equal(a, b) for a, b in zip(ids[1:3], full[1:])), (
+            f"{name}: the expansion's two modes give other tiles or depths")
         del ref
-        rec_f, rec_t, rec_d, word = got
-        words = rs.words_of(rec_t, rec_d, key, word)
+        expand_us = {"fields_us": launch_us(lambda: kr.expand(*table, cum, **ekw), "expand"),
+                     "splat_ids_us": launch_us(
+                         lambda: kr.expand_ids(*table, cum, **ekw, key=key), "expand")}
+        sid = ids[0]
+        # the frame's words: the pair key's high word, the tile ids, shares
+        # a buffer with the splat ids, which the passes of a frame without
+        # a gradient carry with it
+        words_s = rs.words_of(ids[1], ids[2], key, ids[3])
+        rec_f, rec_t, rec_d = full
+        words = rs.words_of(rec_t, rec_d, key)
+        assert torch.equal(words[0], ids[3]), f"{name} {key}: the sort words differ"
         c, dev = rec_f.shape[1], rec_f.device
-        sf, bounds, inv = rs.record_sort_fwd(rec_f, words, t, key)
         p_sf, p_bounds, si = rs.record_sort_plain(rec_f, words, t, key)
-        assert torch.equal(sf, p_sf), f"{name} {key}: sorted fields differ from the plain stage"
-        assert torch.equal(bounds, p_bounds), f"{name} {key}: bounds differ from searchsorted"
-        assert torch.equal(inv, rs.inverse_plain(si)), f"{name} {key}: the inverse index differs"
-        # a frame without a gradient: the same outputs, no inverse stored
-        n_sf, n_bounds, n_inv = rs.record_sort_fwd(rec_f, words, t, key, inverse=False)
-        assert n_inv is None and torch.equal(n_sf, sf) and torch.equal(n_bounds, bounds)
-        del sf, p_sf, p_bounds, n_sf, n_bounds
+        p_inv = rs.inverse_plain(si)
 
-        def fwd():
-            return rs.record_sort_fwd(rec_f, words, t, key)
+        def fwd(inverse=True):
+            return rs.record_sort_splats_fwd(fields, pairs, sid, words_s, t, key,
+                                             inverse=inverse)
 
-        def fwd_frame():
-            return rs.record_sort_fwd(rec_f, words, t, key, inverse=False)
+        def fwd_nine_rows(inverse=True):
+            return field_stage(rec_f, words, t, key, inverse)
+
+        for form, fwd_ in (("by splat", fwd), ("(9, C)", fwd_nine_rows)):
+            sf, bounds, inv = fwd_()
+            assert torch.equal(sf, p_sf), f"{name} {key} {form}: sorted fields differ"
+            assert torch.equal(bounds, p_bounds), f"{name} {key} {form}: bounds differ"
+            assert torch.equal(inv, p_inv), f"{name} {key} {form}: the inverse differs"
+            # a frame without a gradient: the same outputs, no inverse stored
+            n_sf, n_bounds, n_inv = fwd_(inverse=False)
+            assert n_inv is None and torch.equal(n_sf, sf) and torch.equal(n_bounds, bounds)
+            del sf, bounds, n_sf, n_bounds
+        binned = int(p_bounds[-1])
+        del p_sf, p_bounds
 
         k64 = rs.key64(words, key)
         sk, _ = torch.sort(k64, stable=True)
@@ -1157,14 +1238,19 @@ def check_record_sort(name, frame, keys=("pair", "packed")):
         f_row = dict(
             max_abs_err=0.0, ms=cuda_ms(fwd, reps=9), device_us=device_us(fwd, calls=20),
             launches_device_us=device_launches(fwd),
-            no_inverse_ms=cuda_ms(fwd_frame, reps=9),
-            no_inverse_device_us=device_us(fwd_frame, calls=20),
+            no_inverse_ms=cuda_ms(lambda: fwd(False), reps=9),
+            no_inverse_device_us=device_us(lambda: fwd(False), calls=20),
+            nine_rows_ms=cuda_ms(fwd_nine_rows, reps=9),
+            nine_rows_device_us=device_us(fwd_nine_rows, calls=20),
+            nine_rows_launches_device_us=device_launches(fwd_nine_rows),
+            nine_rows_no_inverse_device_us=device_us(lambda: fwd_nine_rows(False), calls=20),
+            expand_device_us=expand_us, table_device_us=table_us,
             plain_ms=cuda_ms(lambda: rs.record_sort_plain(rec_f, words, t, key), reps=9),
             plain_parts_ms_device_us=plain_parts,
             library_ms=cuda_ms(library, reps=9), library_device_us=device_us(library, calls=20),
             library_is="torch.sort(stable=True) of the int64 key + index_select of the "
-            "nine rows + searchsorted", key=key, records=c, binned=int(bounds[-1]), tiles=t,
-            passes=lo_p + hi_p, **record_sort_bound(c, key, t))
+            "nine rows + searchsorted", key=key, records=c, splats=n, binned=binned,
+            tiles=t, passes=lo_p + hi_p, **record_sort_bound(c, key, t))
         del k64, sk
 
         gen = torch.Generator(device=dev).manual_seed(6)
@@ -1173,41 +1259,46 @@ def check_record_sort(name, frame, keys=("pair", "packed")):
         try:
             for cot in ("f32", "bf16"):
                 kr.BWD_COT_PACK = cot
-                assert torch.equal(rs.record_unsort(g, inv),
+                assert torch.equal(rs.record_unsort(g, p_inv),
                                    rs.unsort_plain(g, si, rs._paired(None))), (
                     f"{name} {key}: the un-sort differs from index_copy_ "
                     f"({kr.BWD_COT_PACK} cotangents)")
         finally:
             kr.BWD_COT_PACK = mode
 
-        def copy():
+        def copy_back():
             return torch.empty_like(g).index_copy_(1, si, g)
 
         b_row = dict(
-            max_abs_err=0.0, ms=cuda_ms(lambda: rs.record_unsort(g, inv), reps=9),
-            device_us=device_us(lambda: rs.record_unsort(g, inv), calls=20),
+            max_abs_err=0.0, ms=cuda_ms(lambda: rs.record_unsort(g, p_inv), reps=9),
+            device_us=device_us(lambda: rs.record_unsort(g, p_inv), calls=20),
             plain_ms=cuda_ms(lambda: rs.unsort_plain(g, si), reps=9),
-            library_ms=cuda_ms(copy, reps=9), library_device_us=device_us(copy, calls=20),
+            library_ms=cuda_ms(copy_back, reps=9),
+            library_device_us=device_us(copy_back, calls=20),
             library_is="index_copy_ of the nine rows by the source index", key=key,
             records=c, **bound(76 * c, 0))
-        log(f"[2] record_sort {name}, {key} key: C={c} records, {t} tiles, "
-            f"{lo_p + hi_p} passes; sorted fields, bounds and inverse bit-equal to the "
-            f"plain stage; kernels {f_row['ms']:.4f} ms, on the device alone "
-            f"{us(f_row['device_us'])} us (without the inverse, as a frame without a "
-            f"gradient: {f_row['no_inverse_ms']:.4f} ms, "
-            f"{us(f_row['no_inverse_device_us'])} us; by launch: "
-            + ", ".join(f"{n.split('(')[0][-22:]} {v:.1f}"
-                        for n, v in (f_row["launches_device_us"] or []))
-            + f"), plain {f_row['plain_ms']:.4f} ms (by call, ms / device us: "
+        log(f"[2] record_sort {name}, {key} key: C={c} records of N={n} splats, {t} tiles, "
+            f"{lo_p + hi_p} passes; the expansion's splat ids, the pair layout, the stage "
+            f"and the (9, C) form bit-equal to their plain versions; the stage "
+            f"{f_row['ms']:.4f} ms, on the device alone {us(f_row['device_us'])} us (by "
+            f"launch: {by_launch(f_row['launches_device_us'])}; without the inverse "
+            f"{f_row['no_inverse_ms']:.4f} ms, {us(f_row['no_inverse_device_us'])} us); the "
+            f"(9, C) form {f_row['nine_rows_ms']:.4f} ms, {us(f_row['nine_rows_device_us'])} "
+            f"us (by launch: {by_launch(f_row['nine_rows_launches_device_us'])}; without "
+            f"the inverse {us(f_row['nine_rows_no_inverse_device_us'])} us); the expansion "
+            f"(us): fields {us(expand_us['fields_us'])}, splat ids "
+            f"{us(expand_us['splat_ids_us'])}; the splat table (us): "
+            f"{us(table_us['table_us'])}, with the pair layout "
+            f"{us(table_us['table_with_pairs_us'])}; plain {f_row['plain_ms']:.4f} ms (by "
+            f"call, ms / device us: "
             + ", ".join(f"{k} {a:.4f} / {us(b)}" for k, (a, b) in plain_parts.items())
             + f"), library {f_row['library_ms']:.4f} ms / {us(f_row['library_device_us'])} "
-            f"us, bound {f_row['bound_ms']:.4f} ms; un-sort bit-equal to index_copy_ "
-            f"(f32 and bf16 cotangents): {b_row['ms']:.4f} ms, on the device alone "
-            f"{us(b_row['device_us'])} us, plain {b_row['plain_ms']:.4f} ms, index_copy_ "
-            f"{b_row['library_ms']:.4f} ms / {us(b_row['library_device_us'])} us, bound "
-            f"{b_row['bound_ms']:.4f} ms")
+            f"us, bound {f_row['bound_ms']:.4f} ms; the un-sort bit-equal to index_copy_ "
+            f"(f32 and bf16 cotangents): {b_row['ms']:.4f} ms, {us(b_row['device_us'])} us; "
+            f"plain {b_row['plain_ms']:.4f} ms, index_copy_ {b_row['library_ms']:.4f} ms / "
+            f"{us(b_row['library_device_us'])} us, bound {b_row['bound_ms']:.4f} ms")
         rows[key] = (f_row, b_row)
-        del got, rec_f, rec_t, rec_d, word, words, g, inv, si
+        del full, ids, sid, rec_f, rec_t, rec_d, words, words_s, g, p_inv, si
     return rows
 
 
@@ -1363,9 +1454,10 @@ def check_single_key_frames(frame, img_pair, img_packed):
         torch.cuda.synchronize()
         counts[name] = read_launches()
         # the packed key's f32 sort is the record sort stage on either route:
-        # one count, a scatter a pass (four at the flagship's 512 tiles), one
-        # gather; the hoisted radix route counts once and scatters a pass of
-        # the tile id (two); q16 and the hoisted lax route run torch.sort
+        # one count, a scatter a pass (four at the flagship's 512 tiles), the
+        # fields' gather (no gradient); the hoisted radix route counts once
+        # and scatters a pass of the tile id (two); q16 and the hoisted lax
+        # route run torch.sort
         if name == "packed+radix":
             want = (0, 0, 2 + sum(rs.passes(cfg.num_tiles, "packed")))
         elif cfg.record_sort == "radix":
@@ -1638,18 +1730,24 @@ def check_composite(name, frame, plain_once=False, records=None):
     assert worst <= BWD_ROW_TOL, (
         f"{name}: composite_bwd vs plain: {worst:.3e} of the row's scale, "
         f"{loose} records beyond 1e-3")
-    ms = cuda_ms(lambda: kc.composite_bwd(sf, bounds, ox, oy, got, g, **kw))
+    del d_ref
+
+    def bwd_fields():
+        return kc.composite_bwd(sf, bounds, ox, oy, got, g, **kw)
+
+    ms = cuda_ms(bwd_fields)
     if not plain_once:
         pms = cuda_ms(lambda: kc.composite_bwd_plain(sf, bounds, ox, oy, ref, g, **kw))
     # read 36 B and write 36 B a binned record, read 32 B a pixel
     bwd = dict(max_abs_err=max_abs, max_row_rel_err=worst, ms=ms, plain_ms=pms,
-               library_ms=None,
+               library_ms=None, device_us=device_us(bwd_fields, calls=10),
                **bound(72 * nrec + 32 * npix,
                        BWD_FLOP_VISITED * visited + BWD_FLOP_BLENDED * blended),
                **work)
     log(f"[2] composite_bwd {name}: worst row error {worst:.3e} of the row's "
-        f"scale, {loose} records beyond 1e-3; kernel {ms:.4f} ms, plain "
-        f"{pms:.4f} ms, bound {bwd['bound_ms']:.4f} ms ({bwd['bound_by']})")
+        f"scale, {loose} records beyond 1e-3; kernel {ms:.4f} ms, {bwd['device_us']} us "
+        f"on the device alone; plain {pms:.4f} ms, bound {bwd['bound_ms']:.4f} ms "
+        f"({bwd['bound_by']})")
     return fwd, bwd
 
 
@@ -1698,13 +1796,18 @@ def check_fwdbwd(name, frame, loss=mean_sq_loss):
 
 def stage_times(name, frame, loss=mean_sq_loss):
     """Median CUDA-event time of each stage of one forward + backward (after
-    two warm-up passes), the backward taken stage by stage with
-    torch.autograd.grad, and the per-tile record counts that bound the
-    compositor."""
+    two warm-up passes) of the frame's path, the backward taken stage by
+    stage with torch.autograd.grad, and the per-tile record counts that
+    bound the compositor. The stages are render_fast's: the splat table
+    with its pair layout, the expansion's splat ids, the record sort stage
+    by splat; its backward (``RecordSortSplats.backward``: the un-sort,
+    then the segment sum) is one autograd call, split by an event that a
+    wrapper of the un-sort records as it returns."""
     import torch
 
     from openglgaussiansplattingrenderer_tpu_torch.ops import fastpath
     from openglgaussiansplattingrenderer_tpu_torch.ops.kernels import composite as kc
+    from openglgaussiansplattingrenderer_tpu_torch.ops.kernels import record_sort as rs
     from openglgaussiansplattingrenderer_tpu_torch.ops.kernels import records as kr
     from openglgaussiansplattingrenderer_tpu_torch.ops.kernels import scan as ks
 
@@ -1714,38 +1817,55 @@ def stage_times(name, frame, loss=mean_sq_loss):
     n_fwd = 5                       # table .. composite: the frame's stages
     times = {k: [] for k in names}
     grad = torch.autograd.grad
-    for it in range(REPS + 2):
-        ev = [torch.cuda.Event(enable_timing=True) for _ in range(len(names) + 1)]
-        p = {k: v.detach().requires_grad_(True) for k, v in frame.params.items()}
-        ev[0].record()
-        table, prep = fastpath.splat_table(p, *frame.args, frame.cfg)
-        kw = fastpath.expand_kwargs(p["means"].shape[0], *frame.size, frame.cfg)
-        ev[1].record()
-        cum = ks.cumsum(prep["counts"])
-        ev[2].record()
-        rec = kr.expand(*table, cum, **kw)
-        ev[3].record()
-        sf, bounds = fastpath.sort_records(*rec, *frame.size, frame.cfg)
-        ev[4].record()
-        ox, oy, ckw = frame.composite_inputs(sf)
-        tiled = kc.composite(sf, bounds, ox, oy, **ckw)
-        ev[5].record()
-        value = loss(frame.image(tiled))
-        ev[6].record()
-        (g_tiled,) = grad(value, tiled)
-        ev[7].record()
-        (g_sf,) = grad(tiled, sf, g_tiled)
-        ev[8].record()
-        (g_rec,) = grad(sf, rec[0], g_sf)
-        ev[9].record()
-        (g_fields,) = grad(rec[0], table[0], g_rec)
-        ev[10].record()
-        grad(table[0], list(p.values()), g_fields)
-        ev[11].record()
-        torch.cuda.synchronize()
-        if it >= 2:
-            for i, k in enumerate(names):
-                times[k].append(ev[i].elapsed_time(ev[i + 1]))
+    key = fastpath.record_key(frame.cfg)
+    assert key is not None, "stage_times walks the record sort stage by splat"
+    unsort = rs.record_unsort
+    at_unsort = []
+
+    def timed_unsort(*a, **k):
+        out = unsort(*a, **k)
+        at_unsort[-1].record()
+        return out
+
+    timed_unsort.launches = unsort.launches
+    rs.record_unsort = timed_unsort
+    try:
+        for it in range(REPS + 2):
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(len(names) + 1)]
+            at_unsort.append(ev[9])
+            p = {k: v.detach().requires_grad_(True) for k, v in frame.params.items()}
+            ev[0].record()
+            table, prep = fastpath.splat_table(p, *frame.args, frame.cfg, pairs=True)
+            kw = fastpath.expand_kwargs(p["means"].shape[0], *frame.size, frame.cfg)
+            ev[1].record()
+            cum = ks.cumsum(prep["counts"])
+            ev[2].record()
+            sid, rec_t, rec_d, word = kr.expand_ids(*table, cum, **kw, key=key)
+            ev[3].record()
+            sf, bounds = rs.record_sort_splats(table[0], prep["pairs"], sid,
+                                               rs.words_of(rec_t, rec_d, key, word),
+                                               frame.cfg.num_tiles, key, cum)
+            ev[4].record()
+            ox, oy, ckw = frame.composite_inputs(sf)
+            tiled = kc.composite(sf, bounds, ox, oy, **ckw)
+            ev[5].record()
+            value = loss(frame.image(tiled))
+            ev[6].record()
+            (g_tiled,) = grad(value, tiled)
+            ev[7].record()
+            (g_sf,) = grad(tiled, sf, g_tiled)
+            ev[8].record()
+            (g_fields,) = grad(sf, table[0], g_sf)     # ev[9] at the un-sort's end
+            ev[10].record()
+            grad(table[0], list(p.values()), g_fields)
+            ev[11].record()
+            torch.cuda.synchronize()
+            if it >= 2:
+                for i, k in enumerate(names):
+                    times[k].append(ev[i].elapsed_time(ev[i + 1]))
+    finally:
+        unsort.launches = timed_unsort.launches
+        rs.record_unsort = unsort
     med = {k: statistics.median(v) for k, v in times.items()}
     per_tile = (bounds[1:] - bounds[:-1]).float()
     log(f"[4] {name} forward + backward stages (ms, median of {REPS}): "
@@ -3366,15 +3486,12 @@ def main(argv=None) -> int:
         # 1080p scene's ride along
         rsort = {k: check_record_sort(f"{k} flagship", frames[k])
                  for k in ("uniform", "clustered")}
-        results["record_sort"] = dict(
-            rsort["uniform"]["pair"][0], packed=rsort["uniform"]["packed"][0],
-            clustered=rsort["clustered"]["pair"][0],
-            clustered_packed=rsort["clustered"]["packed"][0],
-            sources=list(RECORD_SORT_SOURCES))
-        results["record_unsort"] = dict(
-            rsort["uniform"]["pair"][1], packed=rsort["uniform"]["packed"][1],
-            clustered=rsort["clustered"]["pair"][1],
-            clustered_packed=rsort["clustered"]["packed"][1])
+        for j, k in enumerate(("record_sort", "record_unsort")):
+            results[k] = dict(
+                rsort["uniform"]["pair"][j], packed=rsort["uniform"]["packed"][j],
+                clustered=rsort["clustered"]["pair"][j],
+                clustered_packed=rsort["clustered"]["packed"][j])
+        results["record_sort"]["sources"] = list(RECORD_SORT_SOURCES)
         del rsort
         # kernels 4 and 5 at the main path's shapes; the gate scene's and
         # the clustered frame's numbers ride along under their names
@@ -3405,7 +3522,8 @@ def main(argv=None) -> int:
                 f"{k} kernel never launched on the render path")
         for k in ("radix_counts", "radix_scatter"):
             assert render_launches[k] == 0, f"{k} launched on the torch.sort path"
-        # the record sort stage: one count, a scatter a pass, one gather a frame
+        # the record sort stage without a gradient: one count, a scatter a
+        # pass carrying the splat ids, the gather of the fields, a frame
         assert one["record_sort"] == 2 + sum(rs.passes(frames["uniform"].cfg.num_tiles,
                                                         "pair")), one
         assert one["record_unsort"] == 0, one

@@ -5,9 +5,9 @@
 //           _expand_kernel (a one-hot bf16 MXU matmul gather over
 //           128-floored DMA windows of a 16-row f32 table).
 // Bound on the card: device memory. Each record writes 11 words (9 fields,
-//           tile, depth), 12 where it also writes the record sort's key
-//           word; each splat's 14 words (9 fields, the tile rect, depth, the
-//           prefix sum) are read once.
+//           tile, depth), or 4 in the record sort stage's mode (splat id,
+//           tile, depth, key word); each splat's 14 words (9 fields, the
+//           tile rect, depth, the prefix sum) are read once.
 // Design:   the partition of records_common.cuh: a block owns K = 1,024
 //           items of the merged sequence of records and splat ends, so a
 //           run of empty splats or one large splat cannot load one block
@@ -36,11 +36,16 @@
 //           only does nothing past its search. The items [n + total, n +
 //           capacity) are the records at or past total: zero with tile =
 //           num_tiles, written by the grid's last blocks with the same
-//           stores. With a record in registers, the record sort's key word
-//           follows from its tile and depth (sort_word): the pair key's low
-//           word (its high word is the tile) or the packed word, 4 B a
-//           record more; the depth is still written (4 B a record) so that
-//           every caller keeps its (fields, tile, depth).
+//           stores. The record sort stage's mode (out_sid, with a key
+//           mode) writes each record's splat id (4 B) in place of its nine
+//           fields (36 B): a record's fields are its splat's, so the stage
+//           gathers them by splat from the splat table's pair layout
+//           (record_gather.cu); the records at or past total get the id n,
+//           the layout's zero row. With a record in registers, the stage's
+//           key word follows from its tile and depth (sort_word): the pair
+//           key's low word (its high word is the tile) or the packed word.
+//           That mode stages only the six fields the cull reads; 16 B a
+//           record are stored.
 
 #include "records_common.cuh"
 
@@ -51,6 +56,7 @@ using records::kItems;
 constexpr int kThreads = 256;
 constexpr int kWin = kItems + 1;  // splats a piece's records can belong to
 constexpr int kFields = 9;
+constexpr int kCullFields = 6;  // mx, my, A, B, C, opacity: what the cull reads
 static_assert(kThreads / 32 > records::kPieces, "block_splits takes a warp a split");
 
 // the window in shared memory, a row a quantity; cum[i] = cum_excl of the
@@ -80,6 +86,7 @@ __device__ __forceinline__ int window_search(const int32_t* cum, int lo, int hi,
 
 struct Record {
   float f[kFields];
+  int sid;  // the splat, n past total
   int tile;
   float d;
   uint32_t key;
@@ -102,18 +109,24 @@ __device__ __forceinline__ uint32_t sort_word(int mode, int tile, float d) {
   return (uint32_t)tile * q + qd;
 }
 
-// record r of the window's splat i: its fields, tile and depth, the cull
-// in the TPU kernel's operation order
-__device__ __forceinline__ void make_record(const Window& w, int i, int r, int gx,
+// record r of the window's splat i (splat s0 + i): its fields (the cull's
+// six alone where `ids`), splat id, tile and depth, the cull in the TPU
+// kernel's operation order
+__device__ __forceinline__ void make_record(const Window& w, int i, int s0, int r, int gx,
                                             int num_tiles, int pw, int ph, int key_mode,
-                                            Record& o) {
+                                            bool ids, Record& o) {
   const int j = r - w.cum[i];
   const int ext = w.ext[i];
   const int q = j / ext;
   const int ty = w.ty0[i] + q;
   const int tx = w.tx0[i] + (j - q * ext);
 #pragma unroll
-  for (int k = 0; k < kFields; ++k) o.f[k] = w.f[k][i];
+  for (int k = 0; k < kCullFields; ++k) o.f[k] = w.f[k][i];
+  if (!ids) {
+#pragma unroll
+    for (int k = kCullFields; k < kFields; ++k) o.f[k] = w.f[k][i];
+  }
+  o.sid = s0 + i;
   o.d = w.depth[i];
   const float mx = o.f[0], my = o.f[1], aa = o.f[2], bb = o.f[3], cc = o.f[4];
   const float x0 = (float)tx * (float)pw;
@@ -134,8 +147,8 @@ __device__ __forceinline__ void make_record(const Window& w, int i, int r, int g
 // the records [a, b) of four-record groups, `fill` giving each one
 template <typename Fill>
 __device__ __forceinline__ void store_groups(int a, int b, bool vec, float* out_f,
-                                             int32_t* out_t, float* out_d, uint32_t* out_k,
-                                             int capacity, Fill fill) {
+                                             int32_t* out_s, int32_t* out_t, float* out_d,
+                                             uint32_t* out_k, int capacity, Fill fill) {
   for (int g = (a >> 2) + (int)threadIdx.x; g <= ((b - 1) >> 2); g += kThreads) {
     Record rec[4];
     bool in[4];
@@ -147,10 +160,15 @@ __device__ __forceinline__ void store_groups(int a, int b, bool vec, float* out_
     }
     const int r = 4 * g;
     if (vec && in[0] && in[3]) {
+      if (out_s) {
+        *reinterpret_cast<int4*>(out_s + r) =
+            make_int4(rec[0].sid, rec[1].sid, rec[2].sid, rec[3].sid);
+      } else {
 #pragma unroll
-      for (int f = 0; f < kFields; ++f)
-        *reinterpret_cast<float4*>(out_f + (size_t)f * capacity + r) =
-            make_float4(rec[0].f[f], rec[1].f[f], rec[2].f[f], rec[3].f[f]);
+        for (int f = 0; f < kFields; ++f)
+          *reinterpret_cast<float4*>(out_f + (size_t)f * capacity + r) =
+              make_float4(rec[0].f[f], rec[1].f[f], rec[2].f[f], rec[3].f[f]);
+      }
       *reinterpret_cast<int4*>(out_t + r) =
           make_int4(rec[0].tile, rec[1].tile, rec[2].tile, rec[3].tile);
       *reinterpret_cast<float4*>(out_d + r) =
@@ -162,8 +180,12 @@ __device__ __forceinline__ void store_groups(int a, int b, bool vec, float* out_
 #pragma unroll
       for (int k = 0; k < 4; ++k) {
         if (!in[k]) continue;
+        if (out_s) {
+          out_s[r + k] = rec[k].sid;
+        } else {
 #pragma unroll
-        for (int f = 0; f < kFields; ++f) out_f[(size_t)f * capacity + r + k] = rec[k].f[f];
+          for (int f = 0; f < kFields; ++f) out_f[(size_t)f * capacity + r + k] = rec[k].f[f];
+        }
         out_t[r + k] = rec[k].tile;
         out_d[r + k] = rec[k].d;
         if (out_k) out_k[r + k] = rec[k].key;
@@ -178,7 +200,8 @@ expand_records(const float* __restrict__ fields,     // (9, n)
                const int32_t* __restrict__ tile_ext,  // (n, 2)
                const float* __restrict__ depth,       // (n,)
                const int32_t* __restrict__ cum_incl,  // (n,)
-               int n, float* __restrict__ out_fields,  // (9, cap)
+               int n, float* __restrict__ out_fields,  // (9, cap), or null
+               int32_t* __restrict__ out_sid,          // (cap,), or null
                int32_t* __restrict__ out_tile,         // (cap,)
                float* __restrict__ out_depth,          // (cap,)
                uint32_t* __restrict__ out_key,         // (cap,) or null
@@ -191,6 +214,8 @@ expand_records(const float* __restrict__ fields,     // (9, n)
   const long long merged = n + total;
   const long long first = (long long)blockIdx.x * records::kPieces * kItems;
   const long long last = min(first + records::kPieces * kItems, (long long)n + capacity);
+  const bool ids = out_sid != nullptr;
+  const int staged = ids ? kCullFields : kFields;
 
   if (first < merged) {
     records::block_splits(cum_incl, n, total, first, merged, s_split);
@@ -201,8 +226,7 @@ expand_records(const float* __restrict__ fields,     // (9, n)
       const int nw = min(p.s1, n - 1) - s0 + 1;
       for (int i = threadIdx.x; i < nw; i += kThreads) {
         const int s = s0 + i;
-#pragma unroll
-        for (int k = 0; k < kFields; ++k)
+        for (int k = 0; k < staged; ++k)
           records::copy_async(&w.f[k][i], fields + (size_t)k * n + s, 4);
         records::copy_async(&w.depth[i], depth + s, 4);
         records::copy_async(&w.tx0[i], tile_min + 2 * s, 4);
@@ -221,10 +245,10 @@ expand_records(const float* __restrict__ fields,     // (9, n)
       // a thread's records only grow, so its splat only moves on: a search
       // of what is left once a record is past the splat
       int i = 0;
-      store_groups(p.r0, p.r1, vec, out_fields, out_tile, out_depth, out_key, capacity,
-                   [&](int r, Record& o) {
+      store_groups(p.r0, p.r1, vec, out_fields, out_sid, out_tile, out_depth, out_key,
+                   capacity, [&](int r, Record& o) {
                      if (w.cum[i + 1] <= r) i = window_search(w.cum, i + 1, nw, r);
-                     make_record(w, i, r, gx, num_tiles, pw, ph, key_mode, o);
+                     make_record(w, i, s0, r, gx, num_tiles, pw, ph, key_mode, ids, o);
                    });
       __syncthreads();  // the window is refilled for the next piece
     }
@@ -232,10 +256,11 @@ expand_records(const float* __restrict__ fields,     // (9, n)
   // the records at or past total
   const long long t0 = max(first, merged), t1 = last;
   if (t0 < t1) {
-    store_groups((int)(t0 - n), (int)(t1 - n), vec, out_fields, out_tile, out_depth,
+    store_groups((int)(t0 - n), (int)(t1 - n), vec, out_fields, out_sid, out_tile, out_depth,
                  out_key, capacity, [&](int, Record& o) {
 #pragma unroll
                    for (int k = 0; k < kFields; ++k) o.f[k] = 0.0f;
+                   o.sid = n;
                    o.tile = num_tiles;
                    o.d = 0.0f;
                    o.key = sort_word(key_mode, num_tiles, 0.0f);
@@ -247,14 +272,18 @@ expand_records(const float* __restrict__ fields,     // (9, n)
 
 extern "C" int gs_records_items() { return kItems; }
 
-// out_key: null with key_mode kKeyNone, else (capacity,) u32 sort words.
+// Two modes: out_fields ((9, capacity) f32) with key_mode kKeyNone and no
+// out_key; or out_sid ((capacity,) int32 splat ids, n past total) with a
+// key mode and out_key ((capacity,) u32 sort words).
 extern "C" int gs_expand(const float* fields, const int32_t* tile_min, const int32_t* tile_ext,
                          const float* depth, const int32_t* cum_incl, int n,
-                         float* out_fields, int32_t* out_tile, float* out_depth,
+                         float* out_fields, int32_t* out_sid, int32_t* out_tile,
+                         float* out_depth,
                          uint32_t* out_key, int capacity, int gx, int num_tiles, int pw,
                          int ph, float ln_alpha_min, int key_mode, void* stream) {
-  if (key_mode < kKeyNone || key_mode > kKeyPacked ||
-      (key_mode == kKeyNone) != (out_key == nullptr))
+  const bool ids = out_sid != nullptr;
+  if (key_mode < kKeyNone || key_mode > kKeyPacked || (out_fields == nullptr) != ids ||
+      (key_mode == kKeyNone) == ids || (out_key == nullptr) == ids)
     return static_cast<int>(cudaErrorInvalidValue);
   if (capacity <= 0) return 0;
   static bool smem_set[64] = {};  // the attribute holds for a device's process
@@ -271,10 +300,11 @@ extern "C" int gs_expand(const float* fields, const int32_t* tile_min, const int
   const long long span = (long long)records::kPieces * kItems;
   const unsigned blocks = (unsigned)((items + span - 1) / span);
   const bool vec = capacity % 4 == 0 && records::aligned16(out_fields) &&
+                   records::aligned16(out_sid) &&
                    records::aligned16(out_tile) && records::aligned16(out_depth) &&
                    records::aligned16(out_key);
   expand_records<<<blocks, kThreads, kSmem, static_cast<cudaStream_t>(stream)>>>(
-      fields, tile_min, tile_ext, depth, cum_incl, n, out_fields, out_tile, out_depth,
+      fields, tile_min, tile_ext, depth, cum_incl, n, out_fields, out_sid, out_tile, out_depth,
       out_key, capacity, gx, num_tiles, pw, ph, ln_alpha_min, key_mode, vec);
   return static_cast<int>(cudaGetLastError());
 }

@@ -48,6 +48,13 @@
 //           half-extents, counts and depth give none, and a row whose nine
 //           cotangents (and mean2d cotangents) are all zero gets zero
 //           gradients, even where autograd's 0 * inf would give NaN.
+//           Where `pairs` is given (the default frame's record sort stage)
+//           the forward also stores the nine fields in the stage's pair
+//           layout (record_gather.cu): fields 0-7 as four (n + 1, 2) arrays
+//           of 8-byte pairs, field 8 as an (n + 1,) array, row n zero (by
+//           thread 0), 36 B a splat more: the stage reads a sorted record's
+//           fields as five sectors from arrays of 29 MB at the flagship,
+//           which L2 holds, where field rows cost nine.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -371,7 +378,8 @@ splat_table_fwd(const float* __restrict__ means, const float* __restrict__ cov6,
                 int2* __restrict__ tile_ext, int32_t* __restrict__ counts,
                 float* __restrict__ depth, float* __restrict__ raw_depth,
                 float2* __restrict__ mean2d, float* __restrict__ radius_out,
-                bool* __restrict__ valid_out, bool* __restrict__ culled_out, long long n) {
+                bool* __restrict__ valid_out, bool* __restrict__ culled_out,
+                float* __restrict__ pairs, long long n) {
   __shared__ float s_cam[kCam];
   extern __shared__ float s_sh[];    // kWarps slabs of 32 sh_rest rows, SH only
   load_camera(s_cam, view, vp, centre);
@@ -449,6 +457,17 @@ splat_table_fwd(const float* __restrict__ means, const float* __restrict__ cov6,
                       pr.a2d * pr.inv_det, op, col[0], col[1], col[2]};
 #pragma unroll
   for (int r = 0; r < 9; ++r) fields[r * n + i] = f[r];
+  if (pairs != nullptr) {
+    const size_t m = (size_t)n + 1;
+#pragma unroll
+    for (int g = 0; g < 4; ++g) {
+      float2* p = reinterpret_cast<float2*>(pairs + g * m * 2);
+      p[i] = make_float2(f[2 * g], f[2 * g + 1]);
+      if (i == 0) p[n] = make_float2(0.0f, 0.0f);
+    }
+    pairs[8 * m + i] = f[8];
+    if (i == 0) pairs[8 * m + n] = 0.0f;
+  }
   tile_min[i] = make_int2(tmin_x, tmin_y);
   tile_ext[i] = make_int2(ext_x, ext_y);
   counts[i] = reach ? ext_x * ext_y : 0;
@@ -736,13 +755,14 @@ extern "C" int gs_splat_table(const float* means, const float* cov6, const float
                               const float* centre, const gs::TableArgs* args, float* fields,
                               int32_t* tile_min, int32_t* tile_ext, int32_t* counts,
                               float* depth, float* raw_depth, float* mean2d, float* radius,
-                              bool* valid, bool* culled, long long n, cudaStream_t stream) {
+                              bool* valid, bool* culled, float* pairs, long long n,
+                              cudaStream_t stream) {
   const gs::TableArgs a = *args;
   const unsigned blocks = static_cast<unsigned>((n + kThreads - 1) / kThreads);
   splat_table_fwd<<<blocks, kThreads, sh_bytes(a), stream>>>(
       means, cov6, scales, quats, opacities, colors, sh_rest, shift2d, view, vp, centre, a,
       fields, reinterpret_cast<int2*>(tile_min), reinterpret_cast<int2*>(tile_ext), counts,
-      depth, raw_depth, reinterpret_cast<float2*>(mean2d), radius, valid, culled, n);
+      depth, raw_depth, reinterpret_cast<float2*>(mean2d), radius, valid, culled, pairs, n);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -17,10 +17,14 @@ depth and the key is the exact pair (``depth_key="pair"``: the tile id
 and the depth's order-kept bits, two u32 words) or one u32, tile * 2^22 +
 22-bit depth (``"packed"``); the expansion kernel writes the key word,
 and the record sort stage (``kernels/record_sort.py``, either
-``record_sort`` route) sorts by it on the port's kernels: one count of
-every pass's digits and of every tile, whose last block writes the bounds,
-a radix_scatter a pass, then one gather of the nine field rows by the
-sorted index, and the same gather of the cotangents back. Overflow past
+``record_sort`` route) sorts by it on the port's kernels. A record's
+fields are its splat's, so the expansion writes its splat id in their
+place and the stage gathers by splat: one count of every pass's digits
+and of every tile, whose last block writes the bounds, a radix_scatter a
+pass, one gather of the sorted records' splat ids, one gather of their
+fields from the pair layout the splat table kernel stored beside its
+fields; backward, one gather of the nine cotangent rows by the inverse
+index and the segment sum. Overflow past
 ``capacity`` then drops records in splat order. With ``hoist_depth_sort=True`` the splat table is
 depth-sorted first, records come out depth-ordered, the record sort is a
 stable sort on the tile id alone, and overflow drops the farthest records;
@@ -142,18 +146,28 @@ def expand_depth_records(params: Dict[str, torch.Tensor], view, vp, focal_x,
     """Preprocess, prefix sum and expansion to splat-major records.
 
     Returns (fields (9, C), tile (C,) int32, depth (C,), info) with info
-    holding ``prep``, ``total`` and ``total_all`` (device scalars), and with
-    ``key`` ("pair", "packed") ``sort_word``, the record sort's word the
-    expansion wrote; with ``stop_after`` one of "prep", "sort1", "cumsum",
-    "expand", a ``Stopped`` (``render_fast`` says what each holds).
+    holding ``prep``, ``total`` and ``total_all`` (device scalars), what
+    ``sort_records`` takes. With ``key=record_key(cfg)`` ("pair" or
+    "packed": the record sort stage's) the expansion writes each record's
+    splat id and sort word in place of its fields, which are its splat's
+    (``records.expand_ids``): the fields slot is None, and info also
+    holds ``sort_word``, ``splat_ids`` (C,), the splat table's ``fields``
+    (9, N), their ``pairs`` layout and ``cum_incl`` (N,). With
+    ``stop_after`` one of "prep", "sort1", "cumsum", "expand", a
+    ``Stopped`` (``render_fast`` says what each holds).
     """
     if stop_after is not None and stop_after not in STAGES:
         # the JAX package renders the whole frame then
         raise ValueError(f"stop_after must be one of {STAGES} or None, "
                          f"got {stop_after!r}")
+    if key is not None and key != record_key(cfg):
+        raise ValueError(f"expand_depth_records: key must be None or "
+                         f"record_key(cfg) = {record_key(cfg)!r}, got {key!r}")
     n = params["means"].shape[0]
+    # the record sort stage reads the fields in its pair layout, which the
+    # splat table kernel stores beside them
     table, prep = splat_table(params, view, vp, focal_x, focal_y, tan_fovx,
-                              tan_fovy, width, height, cfg)
+                              tan_fovy, width, height, cfg, pairs=key is not None)
     if stop_after == "prep":
         return Stopped(prep["mean2d"], {"conic": prep["conic"],
                                         "colors": table[0][6:9].t(),
@@ -172,12 +186,18 @@ def expand_depth_records(params: Dict[str, torch.Tensor], view, vp, focal_x,
     total_all = cum_incl[-1] if n else torch.zeros(
         (), dtype=torch.int32, device=cum_incl.device)
     total = torch.clamp_max(total_all, kw["capacity"])
-    rec_f, rec_t, rec_d, *word = kr.expand(*table, cum_incl, **kw, key=key)
-    if stop_after == "expand":
-        return Stopped(rec_f, {"tile": rec_t, "depth": rec_d})
     info = {"prep": prep, "total": total, "total_all": total_all}
-    if word:
-        info["sort_word"] = word[0]
+    if key is None:
+        rec_f, rec_t, rec_d = kr.expand(*table, cum_incl, **kw)
+    else:
+        sid, rec_t, rec_d, word = kr.expand_ids(*table, cum_incl, **kw, key=key)
+        rec_f = None
+        info.update(sort_word=word, splat_ids=sid, fields=fields, cum_incl=cum_incl,
+                    pairs=prep["pairs"])
+    if stop_after == "expand":
+        if rec_f is None:    # the records' fields from the splat ids
+            rec_f = rs.splat_fields(fields, prep["pairs"], sid, cum_incl)
+        return Stopped(rec_f, {"tile": rec_t, "depth": rec_d})
     return rec_f, rec_t, rec_d, info
 
 
@@ -198,23 +218,31 @@ def check_sort_config(cfg: RenderConfig) -> None:
         raise ValueError("depth_key='packed' needs num_tiles <= 512")
 
 
-def sort_records(rec_f, rec_t, rec_d, width: int, height: int,
-                 cfg: RenderConfig, word: torch.Tensor | None = None):
-    """Stable (tile, depth) record sort and per-tile bounds. ``word`` is the
-    expansion's sort word (``expand_depth_records(key=record_key(cfg))``);
-    where it is not given the stage builds it from ``rec_t`` and ``rec_d``.
+def sort_records(rec_f, rec_t, rec_d, info: dict, width: int, height: int,
+                 cfg: RenderConfig):
+    """Stable (tile, depth) record sort and per-tile bounds of what
+    ``expand_depth_records(..., key=record_key(cfg))`` returned. For the
+    pair and packed keys the record sort stage by splat
+    (``record_sort.record_sort_splats``) on the records' splat ids and key
+    words in ``info``; under ``hoist_depth_sort`` and q16 a sort of the
+    records' fields ``rec_f``.
 
     Returns (sorted fields (9, C), bounds (T+1,) int32)."""
     check_sort_config(cfg)
     t = cfg.num_tiles
-    dev = rec_f.device
     radix = cfg.record_sort == "radix"
     key = record_key(cfg)
     if key is not None:
         # the record sort stage: pair, or packed on either route (the
         # "radix" route's plain version on the CPU is the kernels' passes)
-        return rs.record_sort(rec_f, rs.words_of(rec_t, rec_d, key, word), t, key,
-                              passes_model=radix)
+        if "splat_ids" not in info:
+            raise ValueError("sort_records: the records of the pair and packed keys come "
+                             "from expand_depth_records(..., key=record_key(cfg))")
+        return rs.record_sort_splats(
+            info["fields"], info["pairs"], info["splat_ids"],
+            rs.words_of(rec_t, rec_d, key, info["sort_word"]), t, key, info["cum_incl"],
+            passes_model=radix)
+    dev = rec_f.device
     if cfg.hoist_depth_sort:
         # records arrive depth-ordered, so a stable sort on the tile id alone
         # suffices
@@ -266,11 +294,10 @@ def render_fast(params: Dict[str, torch.Tensor], view, vp, focal_x, focal_y,
     rec_f, rec_t, rec_d, info = stage
     prep, total, total_all = info["prep"], info["total"], info["total_all"]
     n = params["means"].shape[0]
-    capacity = rec_f.shape[1]
+    capacity = rec_t.shape[0]
     t = cfg.num_tiles
 
-    sf, bounds = sort_records(rec_f, rec_t, rec_d, width, height, cfg,
-                              word=info.get("sort_word"))
+    sf, bounds = sort_records(rec_f, rec_t, rec_d, info, width, height, cfg)
     if stop_after == "sort2":
         return sf[0], {"fields": sf, "bounds": bounds}
     tiled, _, counts_t = composite_sorted(

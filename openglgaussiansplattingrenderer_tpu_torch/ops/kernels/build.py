@@ -38,8 +38,8 @@ SIGNATURES = {
     "gs_cumsum_tile": [],
     "gs_cumsum_i32": [_P, _P, _P, _I, _P],
     "gs_records_items": [],
-    "gs_expand": [_P, _P, _P, _P, _P, _I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I,
-                  _P],
+    "gs_expand": [_P, _P, _P, _P, _P, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F,
+                  _I, _P],
     "gs_composite_max_pixels": [],
     "gs_composite_fwd": [_P, _I, _P, _P, _P, _P, _I, _I, _I, _I, _F, _F, _F, _F, _P],
     "gs_composite_bwd": [_P, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _F,
@@ -51,12 +51,14 @@ SIGNATURES = {
     "gs_record_counts": [_P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _L, _P],
     "gs_record_scatter": [_P, _P, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P],
     "gs_record_gather": [_P, _P, _I, _I, _P, _P],
+    "gs_pair_gather": [_P, _L, _P, _I, _P, _P],
+    "gs_id_gather": [_P, _P, _I, _P, _P],
     "gs_bucketer_chunk": [],
     "gs_bucketer_level": [_P, _L, _I, _F, _P, _P],
     "gs_probe_affine": [_P, _P, _L, _P],
     "gs_table_args_size": [],
     "gs_table_sh_row_max": [],
-    "gs_splat_table": [_P] * 22 + [_L, _P],
+    "gs_splat_table": [_P] * 23 + [_L, _P],
     "gs_splat_table_bwd": [_P] * 19 + [_L, _P],
 }
 

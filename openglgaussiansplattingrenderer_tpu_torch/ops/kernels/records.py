@@ -9,8 +9,9 @@ the fields -- the JAX package's ``SORT_MODE="gather"`` form, proven
 bit-identical to its payload sort. Its gradient scatters the cotangents
 back by the recorded source index. The same sort on the radix-sort kernels
 is ``radix_sort.radix_sort_with_payload``; the frame's default record sort
-is the stage of ``record_sort.py``, on the sort words the expansion writes
-(``expand(..., key=)``, ``sort_word``). Also here: the record sort keys
+is the stage of ``record_sort.py``: for it the expansion writes each
+record's splat id and sort word (``sort_word``) in place of its fields
+(``expand_ids``), and the stage gathers the fields by splat. Also here: the record sort keys
 (``pair_key``, ``packed_key`` and its u32 form) and the q16 inference mode,
 which sorts the nine fields packed into five u32 words
 (``sort_records_q16``; plain torch, as it is plain ``jnp`` in the JAX
@@ -60,9 +61,10 @@ def _ln_alpha_min(alpha_min: float) -> float:
     return float(np.float32(np.log(alpha_min)))
 
 
-# The record sort's keys (``fastpath.sort_records``): the expansion writes
-# one u32 word a record for them, 1 for the pair key's low word, 2 for the
-# packed key (``sort_word``); 0 writes none.
+# The record sort stage's keys: the expansion's mode for the stage
+# (``expand_ids``) writes one u32 word a record for them, 1 for the pair
+# key's low word, 2 for the packed key (``sort_word``); ``expand`` (0)
+# writes none.
 KEY_MODES = {None: 0, "pair": 1, "packed": 2}
 
 
@@ -113,7 +115,7 @@ def expand_plain(fields, tile_min, tile_ext, depth, cum_incl, *, capacity,
 
 
 def expand_fwd(fields, tile_min, tile_ext, depth, cum_incl, *, capacity, gx,
-               num_tiles, pw, ph, alpha_min, key=None):
+               num_tiles, pw, ph, alpha_min):
     """The expansion alone (no autograd graph): the CUDA kernel for CUDA
     tensors, ``expand_plain`` for CPU tensors."""
     n = fields.shape[1]
@@ -124,26 +126,79 @@ def expand_fwd(fields, tile_min, tile_ext, depth, cum_incl, *, capacity, gx,
     build.expect("expand cum_incl", cum_incl, torch.int32, (n,))
     if capacity >= 2 ** 31:
         raise ValueError(f"expand: capacity {capacity} exceeds int32 indices")
-    if key not in KEY_MODES:
-        raise ValueError(f"expand: key must be one of {tuple(KEY_MODES)}, got {key!r}")
     args = dict(capacity=capacity, gx=gx, num_tiles=num_tiles, pw=pw, ph=ph,
-                alpha_min=alpha_min, key=key)
+                alpha_min=alpha_min)
     if not build.on_cuda("expand", fields, tile_min, tile_ext, depth, cum_incl):
         return expand_plain(fields, tile_min, tile_ext, depth, cum_incl, **args)
     dev = fields.device
     out_f = torch.empty((NUM_FIELDS, capacity), dtype=torch.float32, device=dev)
     out_t = torch.empty(capacity, dtype=torch.int32, device=dev)
     out_d = torch.empty(capacity, dtype=torch.float32, device=dev)
-    out_k = None if key is None else torch.empty(capacity, dtype=torch.int32, device=dev)
     lib = _library()
     build.check("expand", lib.gs_expand(
         fields.data_ptr(), tile_min.data_ptr(), tile_ext.data_ptr(),
-        depth.data_ptr(), cum_incl.data_ptr(), n, out_f.data_ptr(),
-        out_t.data_ptr(), out_d.data_ptr(), None if out_k is None else out_k.data_ptr(),
-        capacity, gx, num_tiles, pw, ph, _ln_alpha_min(alpha_min), KEY_MODES[key],
-        build.stream_ptr()))
+        depth.data_ptr(), cum_incl.data_ptr(), n, out_f.data_ptr(), None,
+        out_t.data_ptr(), out_d.data_ptr(), None, capacity, gx, num_tiles, pw, ph,
+        _ln_alpha_min(alpha_min), KEY_MODES[None], build.stream_ptr()))
     expand.launches += 1
-    return (out_f, out_t, out_d) if out_k is None else (out_f, out_t, out_d, out_k)
+    return out_f, out_t, out_d
+
+
+def splat_ids_plain(cum_incl: torch.Tensor, capacity: int) -> torch.Tensor:
+    """Each record's splat, (capacity,) int32: the s with cum_excl[s] <= r <
+    cum_incl[s] for a record r below total = min(cum_incl[-1], capacity),
+    and n (the splat count) for the records at or past total."""
+    n = cum_incl.shape[0]
+    r = torch.arange(capacity, dtype=torch.int32, device=cum_incl.device)
+    if n == 0:
+        return torch.zeros(capacity, dtype=torch.int32, device=cum_incl.device)
+    s = torch.searchsorted(cum_incl, r, right=True).to(torch.int32)
+    return torch.where(r < torch.clamp_max(cum_incl[-1], capacity), s, n)
+
+
+def expand_ids(fields, tile_min, tile_ext, depth, cum_incl, *, capacity, gx,
+               num_tiles, pw, ph, alpha_min, key):
+    """The expansion's record sort mode: each record's splat id
+    (``splat_ids_plain``) in place of its nine fields, which are its
+    splat's: the record sort stage gathers them by splat
+    (``record_sort.record_sort_splats``). Returns (splat ids (C,) int32,
+    tile (C,) int32, depth (C,) f32, sort word (C,) int32): tile and depth
+    what ``expand`` returns, the word their ``sort_word``; none carries a
+    gradient. On CUDA
+    tensors one launch of the expansion kernel, which stores 16 B a record
+    where ``expand`` stores 48 B; on CPU tensors ``expand_plain`` and
+    ``splat_ids_plain``."""
+    n = fields.shape[1]
+    build.expect("expand fields", fields, torch.float32, (NUM_FIELDS, n))
+    build.expect("expand tile_min", tile_min, torch.int32, (n, 2))
+    build.expect("expand tile_ext", tile_ext, torch.int32, (n, 2))
+    build.expect("expand depth", depth, torch.float32, (n,))
+    build.expect("expand cum_incl", cum_incl, torch.int32, (n,))
+    if capacity >= 2 ** 31:
+        raise ValueError(f"expand: capacity {capacity} exceeds int32 indices")
+    if key not in KEY_MODES or key is None:
+        raise ValueError(f"expand_ids: key must be 'pair' or 'packed', got {key!r}")
+    args = dict(capacity=capacity, gx=gx, num_tiles=num_tiles, pw=pw, ph=ph,
+                alpha_min=alpha_min, key=key)
+    fields, depth = fields.detach(), depth.detach()     # no output has a gradient
+    if not build.on_cuda("expand", fields, tile_min, tile_ext, depth, cum_incl):
+        _, tile, d, word = expand_plain(fields, tile_min, tile_ext, depth, cum_incl, **args)
+        return splat_ids_plain(cum_incl, capacity), tile, d, word
+    dev = fields.device
+    # the tile ids (the pair key's high word) and the splat ids in one
+    # buffer, rows 0 and 1: the record sort's passes carry the two as one
+    # (2, C) payload where no inverse is needed
+    tile_ids = torch.empty((2, capacity), dtype=torch.int32, device=dev)
+    out_t, out_s = tile_ids
+    out_k = torch.empty(capacity, dtype=torch.int32, device=dev)
+    out_d = torch.empty(capacity, dtype=torch.float32, device=dev)
+    build.check("expand", _library().gs_expand(
+        fields.data_ptr(), tile_min.data_ptr(), tile_ext.data_ptr(),
+        depth.data_ptr(), cum_incl.data_ptr(), n, None, out_s.data_ptr(),
+        out_t.data_ptr(), out_d.data_ptr(), out_k.data_ptr(), capacity, gx, num_tiles,
+        pw, ph, _ln_alpha_min(alpha_min), KEY_MODES[key], build.stream_ptr()))
+    expand.launches += 1
+    return out_s, out_t, out_d, out_k
 
 
 def segsum_plain(g: torch.Tensor, cum_incl: torch.Tensor) -> torch.Tensor:
@@ -190,30 +245,29 @@ def segsum(g: torch.Tensor, cum_incl: torch.Tensor) -> torch.Tensor:
 
 class Expand(torch.autograd.Function):
     """``expand_fwd`` with ``segsum`` as its gradient with respect to the
-    splat fields. The tile ids, depths and sort words of the records, and
-    the integer inputs, carry no gradient (sort keys are not
-    differentiated)."""
+    splat fields. The tile ids and depths of the records, and the integer
+    inputs, carry no gradient (sort keys are not differentiated)."""
 
     @staticmethod
     def forward(ctx, fields, tile_min, tile_ext, depth, cum_incl, capacity,
-                gx, num_tiles, pw, ph, alpha_min, key):
-        out = expand_fwd(
+                gx, num_tiles, pw, ph, alpha_min):
+        out_f, out_t, out_d = expand_fwd(
             fields, tile_min, tile_ext, depth, cum_incl, capacity=capacity,
-            gx=gx, num_tiles=num_tiles, pw=pw, ph=ph, alpha_min=alpha_min, key=key)
+            gx=gx, num_tiles=num_tiles, pw=pw, ph=ph, alpha_min=alpha_min)
         ctx.save_for_backward(cum_incl)
-        ctx.mark_non_differentiable(*out[1:])
-        return out
+        ctx.mark_non_differentiable(out_t, out_d)
+        return out_f, out_t, out_d
 
     @staticmethod
-    def backward(ctx, g_fields, *_g_keys):
+    def backward(ctx, g_fields, _g_tile, _g_depth):
         (cum_incl,) = ctx.saved_tensors
-        return (segsum(g_fields.contiguous(), cum_incl),) + (None,) * 11
+        return (segsum(g_fields.contiguous(), cum_incl),) + (None,) * 10
 
 
 def expand(fields: torch.Tensor, tile_min: torch.Tensor, tile_ext: torch.Tensor,
            depth: torch.Tensor, cum_incl: torch.Tensor, *, capacity: int, gx: int,
-           num_tiles: int, pw: int, ph: int, alpha_min: float,
-           key: Optional[str] = None) -> Tuple[torch.Tensor, ...]:
+           num_tiles: int, pw: int, ph: int, alpha_min: float
+           ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Splat-major records from the per-splat table.
 
     Record r belongs to splat s with cum_excl[s] <= r < cum_incl[s]; it
@@ -223,14 +277,13 @@ def expand(fields: torch.Tensor, tile_min: torch.Tensor, tile_ext: torch.Tensor,
     are zero with tile ``num_tiles``, and so is the tile of a record whose
     Gaussian cannot reach ``alpha_min`` anywhere in its pw x ph tile.
     Returns (fields (9, C) f32, tile (C,) int32, depth (C,) f32); the
-    fields are differentiable with respect to ``fields``. With ``key``
-    ("pair" or "packed") a fourth output, (C,) int32: each record's sort
-    word (``sort_word``), written by the kernel from the record it holds.
-    ``expand.launches`` counts launches of the expansion kernel,
+    fields are differentiable with respect to ``fields``. (The record sort
+    stage's mode, splat ids and sort words in place of the fields, is
+    ``expand_ids``.) ``expand.launches`` counts launches of the expansion kernel,
     ``segsum.launches`` those of its transpose.
     """
     return Expand.apply(fields, tile_min, tile_ext, depth, cum_incl, capacity,
-                        gx, num_tiles, pw, ph, alpha_min, key)
+                        gx, num_tiles, pw, ph, alpha_min)
 
 
 expand.launches = 0
@@ -339,7 +392,7 @@ def sort_word(tile: torch.Tensor, depth: torch.Tensor, key: str) -> torch.Tensor
     """The record sort's word of each record, as int32 bit patterns: for
     ``"pair"`` the pair key's low word (``depth_order_bits``; its high word
     is the tile id), for ``"packed"`` the packed key (``packed_key_u32``).
-    What ``expand(..., key=)`` writes."""
+    What ``expand_ids`` writes."""
     if key == "pair":
         return depth_order_bits(depth)
     if key == "packed":

@@ -11,7 +11,9 @@ b, the tile rect and counts, the depth) and what ``prep`` hands on;
 ``gs_splat_table_bwd`` is its analytic backward, one thread a splat, fed
 the (9, N) field cotangents the segment sum makes. ``SplatTable``, a
 ``torch.autograd.Function``, joins them and saves the inputs, not the
-intermediates: the backward recomputes the projection.
+intermediates: the backward recomputes the projection. Where the record
+sort stage asks for it (``pairs``), the forward also stores the fields in
+the stage's pair layout (``splat_pairs_plain``).
 
 The plain versions are ``splat_table_plain`` (``projection.preprocess``
 and the field stack in torch, whose arithmetic the kernel repeats operation
@@ -52,6 +54,8 @@ from openglgaussiansplattingrenderer_tpu_torch.ops.transforms import (
 )
 
 NUM_FIELDS = 9
+# (N + 1)-float arrays of the pair layout: four of field pairs, field 8's
+PAIR_LAYOUT_ROWS = 9
 # the inputs of the table, in SplatTable's order
 INPUTS = ("means", "cov6", "scales", "quats", "opacities", "colors", "sh_rest", "shift2d")
 # packed covariance entries (xx, xy, xz, yy, yz, zz) by index pair
@@ -408,13 +412,27 @@ def _centre(view, sh_row: int):
     return camera_center_from_view(view).to(torch.float32).contiguous() if sh_row else None
 
 
-def splat_table_fwd_plain(inputs: Dict[str, Optional[torch.Tensor]], view, vp, spec):
+def splat_pairs_plain(fields: torch.Tensor) -> torch.Tensor:
+    """The record sort stage's pair layout of (9, N) ``fields`` in plain
+    torch, what the forward kernel stores with ``pairs``: (9 (N + 1),) f32,
+    the four (N + 1, 2) arrays of fields (0, 1) .. (6, 7), then field 8's
+    (N + 1,) array; row N zero (``record_sort.record_sort_splats`` reads
+    it)."""
+    n = fields.shape[1]
+    padded = torch.cat([fields, fields.new_zeros((NUM_FIELDS, 1))], 1)
+    pairs = padded[:8].reshape(4, 2, n + 1).transpose(1, 2).reshape(-1)
+    return torch.cat([pairs, padded[8]])
+
+
+def splat_table_fwd_plain(inputs: Dict[str, Optional[torch.Tensor]], view, vp, spec,
+                          pairs: bool = False):
     """``splat_table_plain`` with ``splat_table_fwd``'s inputs and outputs."""
     (fields, tile_min, tile_ext, depth), prep = splat_table_plain(
         _params(inputs), view, vp, *spec)
     mean2d = prep["mean2d"] if inputs.get("shift2d") is not None else None
-    return (fields, mean2d, tile_min, tile_ext, prep["counts"], depth, prep["depth"],
-            prep["radius"], prep["valid"], prep["culled"])
+    out = (fields, mean2d, tile_min, tile_ext, prep["counts"], depth, prep["depth"],
+           prep["radius"], prep["valid"], prep["culled"])
+    return out + (splat_pairs_plain(fields.detach()),) if pairs else out
 
 
 def table_inputs(params: Dict[str, torch.Tensor], cfg: RenderConfig):
@@ -428,16 +446,19 @@ def table_inputs(params: Dict[str, torch.Tensor], cfg: RenderConfig):
     return {k: None if given.get(k) is None else given[k].contiguous() for k in INPUTS}
 
 
-def splat_table_fwd(inputs: Dict[str, Optional[torch.Tensor]], view, vp, spec):
+def splat_table_fwd(inputs: Dict[str, Optional[torch.Tensor]], view, vp, spec,
+                    pairs: bool = False):
     """The forward alone (no autograd graph): the CUDA kernel for CUDA
     tensors, ``splat_table_plain`` for CPU tensors. Returns (fields (9, N),
     the unshifted mean2d (N, 2) where ``shift2d`` is given else None,
     tile_min, tile_ext, counts, depth, the raw depth, radius, valid,
-    culled)."""
+    culled), and with ``pairs`` the fields in the record sort stage's pair
+    layout (``splat_pairs_plain``), which the kernel stores
+    beside them."""
     cfg = spec[-1]
     given = [t for t in inputs.values() if t is not None]
     if not build.on_cuda("splat_table", *given, view, vp, has_backward=True):
-        return splat_table_fwd_plain(inputs, view, vp, spec)
+        return splat_table_fwd_plain(inputs, view, vp, spec, pairs)
     n = _expect_inputs("splat_table", inputs, view, vp)
     lib, row_max = _library()
     sh_row = _sh_row("splat_table", inputs.get("sh_rest"), cfg, row_max)
@@ -451,15 +472,18 @@ def splat_table_fwd(inputs: Dict[str, Optional[torch.Tensor]], view, vp, spec):
     valid, culled = (torch.empty(n, dtype=torch.bool, device=dev) for _ in range(2))
     out = (fields, mean2d, tile_min, tile_ext, counts, depth, raw_depth, radius, valid,
            culled)
+    pair_rows = torch.empty(PAIR_LAYOUT_ROWS * (n + 1), **f32) if pairs else None
+    if pairs:
+        out += (pair_rows,)
     if n == 0:
-        return out
+        return out if pair_rows is None else out[:-1] + (pair_rows.zero_(),)
     centre = _centre(view, sh_row)
     args = table_args(spec, sh_row)
     build.check("splat_table", lib.gs_splat_table(
         *(_ptr(inputs.get(k)) for k in INPUTS), view.data_ptr(), vp.data_ptr(),
         _ptr(centre), ctypes.addressof(args), *(_ptr(t) for t in out[:1] + out[2:5]),
         depth.data_ptr(), raw_depth.data_ptr(), _ptr(mean2d), radius.data_ptr(),
-        valid.data_ptr(), culled.data_ptr(), n, build.stream_ptr()))
+        valid.data_ptr(), culled.data_ptr(), _ptr(pair_rows), n, build.stream_ptr()))
     splat_table.launches += 1
     return out
 
@@ -510,10 +534,10 @@ class SplatTable(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, means, cov6, scales, quats, opacities, colors, sh_rest, shift2d,
-                view, vp, spec):
+                view, vp, spec, pairs):
         inputs = dict(zip(INPUTS, (means, cov6, scales, quats, opacities, colors,
                                    sh_rest, shift2d)))
-        out = splat_table_fwd(inputs, view, vp, spec)
+        out = splat_table_fwd(inputs, view, vp, spec, pairs)
         ctx.spec = spec
         ctx.n = means.shape[0]
         ctx.save_for_backward(means, cov6, scales, quats, opacities, colors, sh_rest,
@@ -525,7 +549,7 @@ class SplatTable(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g_fields, g_mean2d, *_):
         if g_fields is None and g_mean2d is None:
-            return (None,) * 11
+            return (None,) * 12
         means, cov6, scales, quats, opacities, colors, sh_rest, view, vp = ctx.saved_tensors
         if g_fields is None:
             g_fields = torch.zeros((NUM_FIELDS, ctx.n), dtype=torch.float32,
@@ -535,11 +559,11 @@ class SplatTable(torch.autograd.Function):
         grads = splat_table_bwd(inputs, view, vp, ctx.spec, g_fields.contiguous(),
                                 None if g_mean2d is None else g_mean2d.contiguous())
         g_shift = g_fields[0:2].t().contiguous() if ctx.needs_input_grad[7] else None
-        return (*(grads.get(k) for k in INPUTS[:7]), g_shift, None, None, None)
+        return (*(grads.get(k) for k in INPUTS[:7]), g_shift, None, None, None, None)
 
 
 def splat_table(params: Dict[str, torch.Tensor], view, vp, focal_x, focal_y, tan_fovx,
-                tan_fovy, width: int, height: int, cfg: RenderConfig):
+                tan_fovy, width: int, height: int, cfg: RenderConfig, pairs: bool = False):
     """Preprocess and the per-splat inputs of the expansion, differentiable
     with respect to every float parameter. Returns ((fields (9, N),
     tile_min (N, 2), tile_ext (N, 2), depth (N,)), prep): the record fields
@@ -547,16 +571,20 @@ def splat_table(params: Dict[str, torch.Tensor], view, vp, focal_x, focal_y, tan
     splat's tile rect, its depth (0 where invalid or non-finite), and
     ``projection.preprocess``'s keys (mean2d without the shift, conic,
     opacity, the raw depth, radius, tile_min, tile_ext, counts, valid,
-    culled). ``splat_table.launches`` counts forward kernel launches,
+    culled); with ``pairs`` also "pairs", the fields in the record sort
+    stage's pair layout (no gradient), stored by the same launch.
+    ``splat_table.launches`` counts forward kernel launches,
     ``splat_table_bwd.launches`` backward ones."""
     spec = (focal_x, focal_y, tan_fovx, tan_fovy, width, height, cfg)
     (fields, mean2d, tile_min, tile_ext, counts, depth, raw_depth, radius, valid,
-     culled) = SplatTable.apply(*table_inputs(params, cfg).values(), view.contiguous(),
-                                vp.contiguous(), spec)
+     culled, *pair_rows) = SplatTable.apply(*table_inputs(params, cfg).values(),
+                                            view.contiguous(), vp.contiguous(), spec, pairs)
     prep = {"mean2d": fields[0:2].t() if mean2d is None else mean2d,
             "conic": fields[2:5].t(), "opacity": fields[5], "depth": raw_depth,
             "radius": radius, "tile_min": tile_min, "tile_ext": tile_ext,
             "counts": counts, "valid": valid, "culled": culled}
+    if pairs:
+        prep["pairs"] = pair_rows[0]
     return (fields, tile_min, tile_ext, depth), prep
 
 

@@ -125,9 +125,9 @@ class Stream:
         dev = params["means"].device
         view, vp = (torch.as_tensor(m, dtype=torch.float32, device=dev) for m in args[:2])
         with torch.no_grad():
-            rec_f, rec_t, rec_d, _ = fastpath.expand_depth_records(
-                params, view, vp, *args[2:], cfg)
-            self.fields, bounds = fastpath.sort_records(rec_f, rec_t, rec_d, w, h, cfg)
+            rec = fastpath.expand_depth_records(params, view, vp, *args[2:], cfg,
+                                                key=fastpath.record_key(cfg))
+            self.fields, bounds = fastpath.sort_records(*rec, w, h, cfg)
         self.bounds = bounds.cpu().numpy().astype(np.int64)
         wp, hp = padded_dims(w, h, cfg)
         self.pw, self.ph, self.gx = wp // cfg.grid_x, hp // cfg.grid_y, cfg.grid_x

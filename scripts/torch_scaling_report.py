@@ -110,7 +110,8 @@ def frame_of(n_splats, seed, width, height, chunk, dup, log_scale_range, device)
 def tile_bounds(params, args, width, height, cfg) -> np.ndarray:
     """(T + 1,) record bounds of the frame's (tile, depth)-sorted records."""
     with torch.no_grad():
-        rec = fastpath.expand_depth_records(params, *args, width, height, cfg)[:3]
+        rec = fastpath.expand_depth_records(params, *args, width, height, cfg,
+                                            key=fastpath.record_key(cfg))
         _, bounds = fastpath.sort_records(*rec, width, height, cfg)
     return bounds.cpu().numpy().astype(np.int64)
 

@@ -1,0 +1,193 @@
+#!/usr/bin/env python3
+"""End-to-end times of the port's default frame, for comparing two
+checkouts on one card in turn.
+
+    python3 scripts/torch_turn_bench.py                      # this checkout
+    python3 scripts/torch_turn_bench.py --root build/parent  # another one's package
+
+Imports ``openglgaussiansplattingrenderer_tpu_torch`` from ``--root`` (a
+checkout's root; default this one), so that one call can time a parent
+and a change as parent, change, change, parent. On ``chip_smoke.py``'s
+scenes (the uniform and the clustered flagship, 3,616,103 splats at
+1024x512; 1,000,000 splats at 1920x1080), capacity autotuned, default
+``depth_key="pair"``, it times:
+
+- the frame (``render_arrays`` under ``torch.no_grad()``): CUDA events
+  around each call, the median of ``--reps`` after two warm-up calls; the
+  host's time to return from the call, the device idle before it (the
+  median of ``--reps``: where it is near the events' time, the host sets
+  the pace); and the device time alone: the sum of one call's kernel and
+  memset records (torch.profiler), the median of three profiled calls;
+- the forward + backward of ``mean(img[..., :3] ** 2)``, the same way;
+- on the uniform flagship, the train step (``make_train_step``, L1 + 0.2
+  D-SSIM, with the densification statistic): host clock to a sync, the
+  median of ``--reps`` steps.
+
+Prints the card and its power limit, a JSON line a scene, then one JSON
+object last. Needs a card: without CUDA it exits with "no CUDA device".
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import subprocess
+import statistics
+import sys
+import time
+from pathlib import Path
+
+REPO = Path(__file__).resolve().parents[1]
+SCENES = {
+    # name: (splats, width, height, chunk, scene maker's name and keywords)
+    "uniform": (3_616_103, 1024, 512, 256, "make_synthetic_scene",
+                dict(seed=99, extent=3.0, log_scale_range=(-5.8, -3.6))),
+    "clustered": (3_616_103, 1024, 512, 256, "make_clustered_scene",
+                  dict(seed=7, extent=3.0)),
+    "1080p": (1_000_000, 1920, 1080, 128, "make_synthetic_scene",
+              dict(seed=42, extent=3.0, log_scale_range=(-5.5, -3.2))),
+}
+
+
+def events_ms(fn, reps: int) -> float:
+    """Median of ``reps`` calls of fn between CUDA events, after two."""
+    import torch
+
+    for _ in range(2):
+        fn()
+    times = []
+    for _ in range(reps):
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        torch.cuda.synchronize()
+        times.append(a.elapsed_time(b))
+    return statistics.median(times)
+
+
+def host_ms(fn, reps: int) -> float:
+    """Median of ``reps`` calls of fn on the host's clock until the call
+    returns, the device synchronised before each call and not after."""
+    import torch
+
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        times.append((time.perf_counter() - t0) * 1e3)
+    torch.cuda.synchronize()
+    return statistics.median(times)
+
+
+def device_ms(fn, runs: int = 3):
+    """Median over ``runs`` profiled calls of the sum of one call's device
+    records (kernels and memsets), in ms; None where none was seen."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    sums = []
+    for _ in range(runs):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        us = sum(e.time_range.elapsed_us() for e in prof.events()
+                 if e.device_type == DeviceType.CUDA)
+        if us:
+            sums.append(us / 1e3)
+    return statistics.median(sums) if sums else None
+
+
+def main(argv=None) -> dict:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--root", default=str(REPO),
+                    help="the checkout whose package is timed (default: this one)")
+    ap.add_argument("--reps", type=int, default=15)
+    ap.add_argument("--scenes", default=",".join(SCENES))
+    args = ap.parse_args(argv)
+    sys.path.insert(0, str(Path(args.root).resolve()))
+    import torch
+
+    if not torch.cuda.is_available():
+        raise SystemExit("torch_turn_bench: no CUDA device")
+    import numpy as np
+
+    import openglgaussiansplattingrenderer_tpu_torch as port
+    from openglgaussiansplattingrenderer_tpu_torch.convert import params_from_numpy
+    from openglgaussiansplattingrenderer_tpu_torch.io import ply as ply_io
+    from openglgaussiansplattingrenderer_tpu_torch.render import (
+        autotune_capacity,
+        camera_args,
+        render_arrays,
+    )
+    from openglgaussiansplattingrenderer_tpu_torch.train.trainer import (
+        TrainConfig,
+        make_train_step,
+        raw_from_params,
+    )
+
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True, text=True,
+                          check=True).stdout.strip().splitlines()[0]
+    print(card, flush=True)
+    dev = torch.device("cuda")
+    out = {"card": card, "package": str(Path(port.__file__).resolve().parent)}
+    for name in args.scenes.split(","):
+        n, w, h, chunk, maker, kw = SCENES[name]
+        scene = getattr(ply_io, maker)(n, **kw)
+        params = params_from_numpy({k: v for k, v in scene.items() if k != "sh_rest"}, dev)
+        a = camera_args(port.Camera(0.0, 0.0, -8.0, width=w, height=h))
+        cam = (torch.as_tensor(a["view"], device=dev), torch.as_tensor(a["vp"], device=dev),
+               a["focal_x"], a["focal_y"], a["tan_fovx"], a["tan_fovy"], w, h)
+        cfg0 = port.RenderConfig.for_resolution(w, h, tile_px=32, chunk=chunk)
+        cfg = autotune_capacity(params, *cam[:6], w, h, cfg0)
+
+        def frame():
+            with torch.no_grad():
+                return render_arrays(params, *cam, cfg)
+
+        def fwdbwd():
+            p = {k: v.detach().requires_grad_(True) for k, v in params.items()}
+            img, _ = render_arrays(p, *cam, cfg)
+            return torch.autograd.grad((img[..., :3] ** 2).mean(), list(p.values()))
+
+        row = {"frame_ms": events_ms(frame, args.reps), "frame_host_ms": host_ms(frame, args.reps),
+               "frame_device_ms": device_ms(frame),
+               "fwdbwd_ms": events_ms(fwdbwd, args.reps),
+               "fwdbwd_host_ms": host_ms(fwdbwd, args.reps),
+               "fwdbwd_device_ms": device_ms(fwdbwd)}
+        if name == "uniform":
+            tc = TrainConfig(lambda_dssim=0.2)
+            target = frame()[0][..., :3].contiguous()
+            colors = params["colors"].cpu().numpy()
+            noisy = np.clip(colors + np.random.default_rng(0).normal(0, 40, colors.shape),
+                            5, 250).astype(np.float32)
+            step = make_train_step(cfg, tc, w, h, with_grad_norms=True)
+            with torch.no_grad():
+                state = step.init(raw_from_params(dict(params, colors=torch.as_tensor(
+                    noisy, device=dev))))
+            wall = []
+            for i in range(args.reps + 2):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                state, metrics = step(state, target, *cam[:6])
+                float(metrics["loss"])
+                torch.cuda.synchronize()
+                if i >= 2:
+                    wall.append((time.perf_counter() - t0) * 1e3)
+            row["train_step_ms"] = statistics.median(wall)
+            del state, step, target
+        out[name] = row
+        print(name, json.dumps(row), flush=True)
+        del params, scene
+        torch.cuda.empty_cache()
+    print(json.dumps(out))
+    return out
+
+
+if __name__ == "__main__":
+    main()

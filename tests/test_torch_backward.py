@@ -37,6 +37,7 @@ from openglgaussiansplattingrenderer_tpu_torch.config import RenderConfig
 from openglgaussiansplattingrenderer_tpu_torch.convert import params_from_numpy
 from openglgaussiansplattingrenderer_tpu_torch.ops import fastpath
 from openglgaussiansplattingrenderer_tpu_torch.ops.kernels import composite as kc
+from openglgaussiansplattingrenderer_tpu_torch.ops.kernels import record_sort as rs
 from openglgaussiansplattingrenderer_tpu_torch.ops.kernels import records as kr
 from openglgaussiansplattingrenderer_tpu_torch.ops.kernels import scan as ks
 from openglgaussiansplattingrenderer_tpu_torch.render import render_arrays
@@ -322,7 +323,11 @@ def test_duplicated_splat_sums_its_records_and_culled_records_get_zero():
     cum = ks.cumsum(prep["counts"])
     rec_f, rec_t, rec_d = kr.expand(fields, *table[1:], cum,
                                     **fastpath.expand_kwargs(150, w, h, cfg))
-    sf, bounds = fastpath.sort_records(rec_f, rec_t, rec_d, w, h, cfg)
+    # the records' own fields sorted (the frame sorts them by splat), so
+    # that each record's cotangent can be read
+    key = fastpath.record_key(cfg)
+    sf, bounds, _ = rs.record_sort_plain(rec_f, rs.words_of(rec_t, rec_d, key),
+                                         cfg.num_tiles, key)
     tiled, _, _ = fastpath.composite_sorted(
         sf, bounds, num_tiles=cfg.num_tiles,
         tile_ids=torch.arange(cfg.num_tiles, dtype=torch.int32), width=w,

@@ -645,16 +645,17 @@ def test_single_key_sort_frames_card_vs_cpu(card, name):
     _, on_card, args = _small(card)
     _, on_cpu, _ = _small("cpu")
     h0, s0 = rx.radix_counts.launches, rx.radix_scatter.launches
-    r0 = rs.record_sort.launches
+    r0 = rs.record_sort_splats.launches
     with torch.no_grad():
         img, stats = render_arrays(on_card, *args, cfg)
         used = (rx.radix_counts.launches - h0, rx.radix_scatter.launches - s0,
-                rs.record_sort.launches - r0)
+                rs.record_sort_splats.launches - r0)
         img_like, _ = render_arrays(on_card, *args, like)
         img_cpu, stats_cpu = render_arrays(on_cpu, *args, cfg)
     # the packed key runs the record sort stage on either route: one count,
-    # a scatter a pass (4), one gather; the hoisted radix route one count and
-    # a scatter a pass of the tile id (2)
+    # a scatter a pass (4) carrying the splat ids (no gradient), the
+    # fields' gather; the hoisted radix route one count and a scatter a
+    # pass of the tile id (2)
     assert used == ((0, 0, 6) if name.startswith("packed") else
                     (0, 0, 0) if cfg.record_sort == "lax" else (1, 2, 0))
     assert torch.equal(img, img_like)            # the engine does not show
@@ -680,6 +681,15 @@ def _sort_records(key, tiles, c, seed):
     return tile, depth, torch.randn((9, c), generator=g)
 
 
+def _one_a_splat(fields, words, tiles, key, inverse=True):
+    """The stage's forward on records that are each a splat of its own:
+    (sorted fields, bounds, inverse) of the records' own fields."""
+    c = fields.shape[1]
+    ids = torch.arange(c, dtype=torch.int32, device=fields.device)
+    return rs.record_sort_splats_fwd(fields, kt.splat_pairs_plain(fields), ids, words, tiles,
+                                     key, inverse=inverse)
+
+
 @pytest.mark.parametrize("key,tiles", [("pair", 512), ("pair", 2040), ("packed", 512),
                                        ("packed", 37)])
 @pytest.mark.parametrize("c", [1, 3, rx.CHUNK - 1, rx.CHUNK, rx.CHUNK + 5, 300_001])
@@ -689,13 +699,13 @@ def test_record_sort_kernels_match_plain(card, key, tiles, c):
     want = rs.record_sort_plain(fields, words_cpu, tiles, key)
     words = tuple(w.to(card) for w in words_cpu)
     f = fields.to(card)
-    before = rs.record_sort.launches
-    sf, bounds, inv = rs.record_sort_fwd(f, words, tiles, key)
+    before = rs.record_sort_splats.launches
+    sf, bounds, inv = _one_a_splat(f, words, tiles, key)
     lo_p, hi_p = rs.passes(tiles, key)
-    assert rs.record_sort.launches - before == 2 + lo_p + hi_p
+    assert rs.record_sort_splats.launches - before == 3 + lo_p + hi_p
     assert torch.equal(sf.cpu(), want[0]) and torch.equal(bounds.cpu(), want[1])
     assert torch.equal(inv.cpu(), rs.inverse_plain(want[2]))
-    again = rs.record_sort_fwd(f, words, tiles, key)
+    again = _one_a_splat(f, words, tiles, key)
     assert all(torch.equal(a, b) for a, b in zip(again, (sf, bounds, inv)))
     gc = torch.randn((9, c), generator=torch.Generator().manual_seed(4))
     for mode, paired in (("f32", 0), ("bf16", 8)):
@@ -709,7 +719,8 @@ def test_record_sort_kernels_match_plain(card, key, tiles, c):
 
 @pytest.mark.parametrize("key", ["pair", "packed"])
 def test_record_sort_kernels_on_views_off_the_16_byte_grid(card, key):
-    # the counts' scalar loads and the scatter's narrow loads
+    # the counts' scalar loads, the scatter's narrow loads, the gathers'
+    # narrow loads of ids and stores of fields
     c = 50_001
     tile, depth, fields = _sort_records(key, 512, c + 1, 9)
     words = rs.words_of(tile, depth, key)
@@ -717,7 +728,10 @@ def test_record_sort_kernels_on_views_off_the_16_byte_grid(card, key):
                                 tuple(w[1:] for w in words), 512, key)
     on = tuple(w.to(card)[1:] for w in words)
     assert on[0].data_ptr() % 16 == 4
-    sf, bounds, inv = rs.record_sort_fwd(fields[:, 1:].contiguous().to(card), on, 512, key)
+    f = fields[:, 1:].contiguous().to(card)
+    ids = torch.arange(-1, c, dtype=torch.int32, device=card)[1:]
+    assert ids.data_ptr() % 16 == 4
+    sf, bounds, inv = rs.record_sort_splats_fwd(f, kt.splat_pairs_plain(f), ids, on, 512, key)
     assert torch.equal(sf.cpu(), want[0]) and torch.equal(bounds.cpu(), want[1])
     assert torch.equal(inv.cpu(), rs.inverse_plain(want[2]))
 
@@ -728,18 +742,184 @@ def test_record_sort_stage_in_the_frame_and_its_gradients(card, depth_key):
     # gradients, bit for bit, on the card
     cfg = port.RenderConfig(chunk=64, dup_capacity_factor=24.0, depth_key=depth_key)
     _, on_card, args = _small(card)
-    r0, u0 = rs.record_sort.launches, rs.record_unsort.launches
+    r0, u0 = rs.record_sort_splats.launches, rs.record_unsort.launches
     g_kernel = _grads(on_card, args, cfg)
-    assert rs.record_sort.launches > r0 and rs.record_unsort.launches == u0 + 1
-    fwd, unsort = rs.record_sort_fwd, rs.record_unsort
-    rs.record_sort_fwd = (lambda f, w, t, k, passes_model=False, inverse=True:
-                          rs.record_sort_plain(f, w, t, k))
+    assert rs.record_sort_splats.launches > r0 and rs.record_unsort.launches == u0 + 1
+    fwd, unsort = rs.record_sort_splats_fwd, rs.record_unsort
+    rs.record_sort_splats_fwd = (
+        lambda f, pairs, sid, w, t, k, passes_model=False, inverse=True:
+        rs.record_sort_splats_plain(f, sid, w, t, k))
     rs.record_unsort = lambda g, order, paired_rows=None: rs.unsort_plain(g, order)
     try:
         g_plain = _grads(on_card, args, cfg)
     finally:
-        rs.record_sort_fwd, rs.record_unsort = fwd, unsort
+        rs.record_sort_splats_fwd, rs.record_unsort = fwd, unsort
     assert all(torch.equal(g_kernel[k], g_plain[k]) for k in g_plain)
+
+
+@pytest.mark.parametrize("name", CASES + ["off_grid_inputs"])
+@pytest.mark.parametrize("key", ["pair", "packed"])
+def test_expand_ids_bit_equal_to_plain_on_the_partition_cases(card, name, key):
+    # the record sort mode of the expansion: splat ids (n past total) in
+    # place of the fields, the tile and depth unchanged, the sort word of
+    # the two; the fields gathered back by splat equal the field mode's
+    counts, capacity = partition_case(name if name in CASES else "overflow")
+    host = [torch.from_numpy(a) for a in splat_table(counts, 1)]
+    cum_h = torch.from_numpy(np.cumsum(counts).astype(np.int32))
+    table, cum = [t.to(card) for t in host], cum_h.to(card)
+    if name == "off_grid_inputs":
+        table, cum = [_off_grid(t) for t in table], _off_grid(cum)
+    kw = dict(capacity=capacity, gx=GX, num_tiles=GX * GY, pw=PW, ph=PH, alpha_min=1 / 255)
+    before = kr.expand.launches
+    with torch.no_grad():
+        got = kr.expand_ids(*table, cum, **kw, key=key)
+        full = kr.expand(*table, cum, **kw)
+        fields = rs.splat_fields(table[0], kt.splat_pairs_plain(table[0]), got[0], cum)
+    assert kr.expand.launches == before + 2
+    want = kr.expand_ids(*host, cum_h, **kw, key=key)
+    for what, a, b in zip(("splat ids", "tile", "depth", "word"), got, want):
+        assert torch.equal(a.cpu(), b), what
+    assert torch.equal(want[0], kr.splat_ids_plain(cum_h, capacity))
+    assert all(torch.equal(a, b) for a, b in zip(got[1:3], full[1:]))
+    assert torch.equal(got[3], kr.sort_word(full[1], full[2], key))
+    assert torch.equal(fields, full[0])
+
+
+def _splat_case(n, c, seed):
+    """Splat fields (9, n), splat ids (c,) in [0, n] (a tenth of them n),
+    a cotangent (9, c)."""
+    g = torch.Generator().manual_seed(seed)
+    fields = torch.randn((9, n), generator=g)
+    sid = torch.randint(0, n + 1, (c,), generator=g, dtype=torch.int32)
+    sid[torch.rand(c, generator=g) < 0.1] = n
+    return fields, sid, torch.randn((9, c), generator=g)
+
+
+@pytest.mark.parametrize("n", [0, 1, 255, 256, 257, 100_003])
+def test_id_gather_and_pair_gather_match_plain(card, n):
+    fields, sid, _ = _splat_case(n, 4 * n + 7, n)
+    pairs = kt.splat_pairs_plain(fields).to(card)
+    sid_c = sid.to(card)
+    for c in (0, 1, 3, 4, 4 * n + 7):
+        idx = torch.randperm(4 * n + 7, generator=torch.Generator().manual_seed(c))[:c]
+        idx = idx.to(torch.int32)
+        ids = sid[idx.to(torch.int64)]
+        for ix in (idx.to(card), _off_grid(idx.to(card)) if c else idx.to(card)):
+            got = rs._id_gather(sid_c, ix)
+            assert torch.equal(got.cpu(), ids), c
+            assert torch.equal(rs._pair_gather(pairs, got).cpu(),
+                               rs.fields_of_splats_plain(fields, ids)), c
+        if c:
+            assert torch.equal(rs._pair_gather(pairs, _off_grid(ids.to(card))).cpu(),
+                               rs.fields_of_splats_plain(fields, ids)), c
+
+
+@pytest.mark.parametrize("n", [1, 127, 128, 129, 50_001])
+def test_splat_table_stores_the_pair_layout(card, n):
+    # kernel 10's store option: the pair layout of the fields it writes,
+    # row n zero, and nothing else changed
+    from openglgaussiansplattingrenderer_tpu_torch.ops import fastpath
+
+    cfg = port.RenderConfig(chunk=64, dup_capacity_factor=24.0)
+    _, params, args = _small(card, n=n)
+    view, vp = (torch.as_tensor(m, dtype=torch.float32, device=card) for m in args[:2])
+    before = kt.splat_table.launches
+    with torch.no_grad():
+        plain, prep0 = fastpath.splat_table(params, view, vp, *args[2:], cfg)
+        with_pairs, prep = fastpath.splat_table(params, view, vp, *args[2:], cfg, pairs=True)
+    assert kt.splat_table.launches == before + 2
+    assert all(torch.equal(a, b) for a, b in zip(plain, with_pairs))
+    assert all(torch.equal(prep0[k], prep[k]) for k in prep0)
+    assert torch.equal(prep["pairs"], kt.splat_pairs_plain(plain[0]))
+
+
+@pytest.mark.parametrize("key,tiles", [("pair", 512), ("pair", 2040), ("packed", 512),
+                                       ("packed", 37)])
+@pytest.mark.parametrize("n,c", [(0, 5), (1, 1), (40, 3), (700, rx.CHUNK + 5),
+                                 (100_000, 300_001), (5, 0)])
+def test_record_sort_splats_match_plain_and_the_field_stage(card, key, tiles, n, c):
+    tile, depth, _ = _sort_records(key, tiles, c, c + tiles + n)
+    fields, sid, gc = _splat_case(n, c, c + n)
+    words_cpu = rs.words_of(tile, depth, key)
+    want = rs.record_sort_splats_plain(fields, sid, words_cpu, tiles, key)
+    rec_f = rs.fields_of_splats_plain(fields, sid)
+    old = rs.record_sort_plain(rec_f, words_cpu, tiles, key)
+    assert all(torch.equal(a, b) for a, b in zip(want, old))
+    words = tuple(w.to(card) for w in words_cpu)
+    f, pairs = fields.to(card), kt.splat_pairs_plain(fields).to(card)
+    before = rs.record_sort_splats.launches
+    sf, bounds, inv = rs.record_sort_splats_fwd(f, pairs, sid.to(card), words, tiles, key)
+    lo_p, hi_p = rs.passes(tiles, key)
+    assert rs.record_sort_splats.launches - before == ((3 + lo_p + hi_p) if c else 0)
+    assert torch.equal(sf.cpu(), want[0]) and torch.equal(bounds.cpu(), want[1])
+    assert torch.equal(inv.cpu(), rs.inverse_plain(want[2]))
+    # the frame without a gradient stores no inverse and carries the splat
+    # ids through the passes: one launch fewer
+    before = rs.record_sort_splats.launches
+    n_sf, n_bounds, n_inv = rs.record_sort_splats_fwd(f, pairs, sid.to(card), words, tiles,
+                                                      key, inverse=False)
+    assert n_inv is None and torch.equal(n_sf, sf) and torch.equal(n_bounds, bounds)
+    assert rs.record_sort_splats.launches - before == ((2 + lo_p + hi_p) if c else 0)
+
+
+class _FieldSort(torch.autograd.Function):
+    """The stable sort of the records' own fields (``record_sort_plain``),
+    with ``unsort_plain`` as its gradient: the route before the stage
+    sorted by splat."""
+
+    @staticmethod
+    def forward(ctx, fields, words, num_tiles, key):
+        sf, bounds, si = rs.record_sort_plain(fields, words, num_tiles, key)
+        ctx.save_for_backward(si)
+        ctx.mark_non_differentiable(bounds)
+        return sf, bounds
+
+    @staticmethod
+    def backward(ctx, g, _g_bounds):
+        (si,) = ctx.saved_tensors
+        return rs.unsort_plain(g.contiguous(), si), None, None, None
+
+
+@pytest.mark.parametrize("depth_key", ["pair", "packed"])
+def test_frame_by_splat_equals_the_field_route_on_the_card(card, depth_key):
+    # the frame (the stage by splat) and the route through the expansion's
+    # fields and the sort of those: the same image and gradients, bit for
+    # bit
+    from openglgaussiansplattingrenderer_tpu_torch.ops import fastpath
+    from openglgaussiansplattingrenderer_tpu_torch.ops.compositing import assemble_image
+
+    cfg = port.RenderConfig(chunk=64, dup_capacity_factor=24.0, depth_key=depth_key)
+    _, params, args = _small(card)
+    n, (w, h) = params["means"].shape[0], args[6:8]
+    key = fastpath.record_key(cfg)
+
+    def field_route(p, view, vp, *a):
+        view, vp = (torch.as_tensor(m, dtype=torch.float32, device=card) for m in (view, vp))
+        table, prep = fastpath.splat_table(p, view, vp, *a, cfg)
+        rec = kr.expand(*table, ks.cumsum(prep["counts"]),
+                        **fastpath.expand_kwargs(n, w, h, cfg))
+        sf, bounds = _FieldSort.apply(rec[0], rs.words_of(rec[1], rec[2], key),
+                                      cfg.num_tiles, key)
+        tiled, _, _ = fastpath.composite_sorted(
+            sf, bounds, num_tiles=cfg.num_tiles,
+            tile_ids=torch.arange(cfg.num_tiles, dtype=torch.int32, device=card),
+            width=w, height=h, cfg=cfg)
+        return assemble_image(tiled[:, :, :3], tiled[:, :, 3], w, h, cfg), None
+
+    def grads(render):
+        p = {k: v.detach().requires_grad_(True) for k, v in params.items()}
+        img, _ = render(p, *args)
+        loss = ((img[..., :3] - 0.2) ** 2).mean() + 0.1 * img[..., 3].mean()
+        return img, torch.autograd.grad(loss, list(p.values()))
+
+    img, g = grads(lambda p, *a: render_arrays(p, *a, cfg))
+    img_f, g_f = grads(field_route)
+    assert torch.equal(img, img_f)
+    assert all(torch.equal(a, b) for a, b in zip(g, g_f))
+    # without a gradient the passes carry the splat ids (the pair key's with
+    # the tile ids, one buffer of the expansion's)
+    with torch.no_grad():
+        assert torch.equal(render_arrays(params, *args, cfg)[0], img_f)
 
 
 def test_q16_frame_card_vs_cpu_and_its_backward_raises(card):

@@ -127,8 +127,9 @@ def test_expand_matches_pallas(seed, n, w, h):
             "packed": j_tile * q + np.minimum(
                 (np.clip(j_depth, 0.0, 1.0) * float(q)).astype(np.uint32), q - 1)}
     for key, w in want.items():
-        out = kr.expand(*table, cum, **kw, key=key)
-        assert len(out) == 4 and torch.equal(out[0], fields) and torch.equal(out[1], tile)
+        out = kr.expand_ids(*table, cum, **kw, key=key)
+        assert len(out) == 4 and torch.equal(out[1], tile) and torch.equal(out[2], depth)
+        assert torch.equal(out[0], kr.splat_ids_plain(cum, kw["capacity"]))
         np.testing.assert_array_equal(out[3][:total].numpy().view(np.uint32), w)
 
 

@@ -1,13 +1,15 @@
 """The record sort stage (``ops/kernels/record_sort.py``) on the CPU.
 
-On the CPU the stage runs its plain versions. ``record_sort_passes_plain``
+On the CPU the stage runs its plain versions. ``sort_order_passes_plain``
 restates the kernels' algorithm: the two-word least-significant-digit
 passes of ``radix_counts_plain`` / ``radix_scatter_plain`` (the low word
 carrying the high word and the source index, then the high word carrying
-the index), the gather after the last pass, and the bounds from the tile
-histogram; ``unsort_gather_plain`` is the kernels' un-sort, a gather by the
-inverse index. A stable sort has one answer, so every case holds bit for
-bit, with no tolerance, against:
+the index) and the bounds from the tile histogram; ``unsort_gather_plain``
+is the kernels' un-sort, a gather by the inverse index. The stage takes
+its records by splat (``record_sort_splats``); here each record is a splat
+of its own (``_one_a_splat``), so its sorted fields and its gradient are
+those of the records' own sort. A stable sort has one answer, so every
+case holds bit for bit, with no tolerance, against:
 
 - ``record_sort_plain``: ``torch.sort(stable=True)`` of the int64 key,
   ``index_select``, ``searchsorted``; and ``index_copy_`` back;
@@ -27,7 +29,9 @@ takes the same draws with -0.0 made +0.0, and
 ``test_negative_zero_is_the_one_difference_from_lax_sort`` pins the
 difference. Last, ``render_fast`` at 20 splats and 64x64 against the JAX
 fast path: the sorted fields and bounds of ``stop_after="sort2"`` bit for
-bit, the pair frame within 1e-4 with every stat equal.
+bit, the pair frame within 1e-4 with every stat equal, and each frame bit
+for bit the route through the expansion's fields and a sort of them
+(``field_route``; the frame sorts by splat).
 """
 
 import functools
@@ -48,9 +52,12 @@ from openglgaussiansplattingrenderer_tpu.render import camera_args as jax_camera
 from openglgaussiansplattingrenderer_tpu_torch.config import RenderConfig
 from openglgaussiansplattingrenderer_tpu_torch.convert import params_from_numpy
 from openglgaussiansplattingrenderer_tpu_torch.ops import fastpath
+from openglgaussiansplattingrenderer_tpu_torch.ops.compositing import assemble_image
 from openglgaussiansplattingrenderer_tpu_torch.ops.kernels import radix_sort as rx
 from openglgaussiansplattingrenderer_tpu_torch.ops.kernels import record_sort as rs
 from openglgaussiansplattingrenderer_tpu_torch.ops.kernels import records as kr
+from openglgaussiansplattingrenderer_tpu_torch.ops.kernels import scan as ks
+from openglgaussiansplattingrenderer_tpu_torch.ops.kernels import table as kt
 from _torch_threads import one_torch_thread  # noqa: F401, E402
 
 pytestmark = pytest.mark.usefixtures("one_torch_thread")
@@ -86,6 +93,16 @@ def _records(key, tiles, c, depths, seed=0):
         depth[::97] = depth[0]                      # exact ties
     fields = rng.normal(0, 1, (kr.NUM_FIELDS, c)).astype(np.float32)
     return tile, depth, fields
+
+
+def _one_a_splat(f, words, tiles, key, passes_model=False):
+    """The stage (``record_sort_splats``) on records that are each a splat
+    of its own: (sorted fields, bounds), differentiable with respect to
+    ``f``."""
+    c = f.shape[1]
+    ids = torch.arange(c, dtype=torch.int32)
+    return rs.record_sort_splats(f, kt.splat_pairs_plain(f.detach()), ids, words, tiles, key,
+                                 ids + 1, passes_model=passes_model)
 
 
 def _packed_np(tile, depth):
@@ -130,10 +147,9 @@ def test_record_sort_plain_versions_and_jax_agree_bit_for_bit(name):
     assert torch.equal(rs.tile_of(words, key), torch.from_numpy(tile))
 
     sf, bounds, si = rs.record_sort_plain(f, words, tiles, key)
-    model = rs.record_sort_passes_plain(f, words, tiles, key)
-    assert torch.equal(model[0], sf)
-    assert torch.equal(model[1], bounds)          # the tile histogram's bounds
-    assert torch.equal(model[2].to(torch.int64), si)
+    m_bounds, m_si = rs.sort_order_passes_plain(words, tiles, key)
+    assert torch.equal(m_bounds, bounds)          # the tile histogram's bounds
+    assert torch.equal(m_si.to(torch.int64), si)
     # against JAX on the draws without -0.0 (the module docstring says why)
     depth = np.where(depth == 0, np.float32(0.0), depth)
     j_words = rs.words_of(torch.from_numpy(tile), torch.from_numpy(depth), key)
@@ -147,7 +163,7 @@ def test_record_sort_plain_versions_and_jax_agree_bit_for_bit(name):
     assert int(bounds[-1]) == int((tile < tiles).sum())
     # the autograd stage on the CPU runs either plain version
     for passes_model in (False, True):
-        got = rs.record_sort(f, words, tiles, key, passes_model=passes_model)
+        got = _one_a_splat(f, words, tiles, key, passes_model)
         assert torch.equal(got[0], sf) and torch.equal(got[1], bounds)
 
 
@@ -171,9 +187,10 @@ def test_unsort_forms_match_index_copy_and_jax_vjp(name, mode, monkeypatch):
     if mode == "bf16":
         assert not torch.equal(want, rs.unsort_plain(gt, si, 0))
         assert torch.equal(want[8], rs.unsort_plain(gt, si, 0)[8])
-    # the stage's own backward, both plain versions
+    # the stage's own backward (the un-sort; the segment sum of one record
+    # a splat adds it to zero), both plain versions
     for passes_model in (False, True):
-        sf, _ = rs.record_sort(f, words, tiles, key, passes_model=passes_model)
+        sf, _ = _one_a_splat(f, words, tiles, key, passes_model)
         (got,) = torch.autograd.grad(sf, f, gt)
         assert torch.equal(got, want)
     _, vjp = _jax_sort(key, tiles, tile, depth, fields)
@@ -186,7 +203,9 @@ def test_pair_words_order_negative_zero_below_positive_zero():
     tile = torch.zeros(6, dtype=torch.int32)
     fields = torch.arange(6, dtype=torch.float32).expand(kr.NUM_FIELDS, 6).contiguous()
     words = rs.words_of(tile, depth, "pair")
-    for sort in (rs.record_sort_plain, rs.record_sort_passes_plain):
+    ids = torch.arange(6, dtype=torch.int32)
+    for sort in (rs.record_sort_plain,
+                 lambda *a: rs.record_sort_splats_plain(a[0], ids, *a[1:], passes_model=True)):
         sf, bounds, _ = sort(fields, words, 4, "pair")
         np.testing.assert_array_equal(sf[0].numpy(), [2, 1, 4, 0, 5, 3])
         np.testing.assert_array_equal(bounds.numpy(), [0, 6, 6, 6, 6])
@@ -223,8 +242,9 @@ def test_record_sort_probe_refuses_without_a_card():
 
 
 def test_expansion_writes_the_sort_words():
-    # the expansion's fourth output is sort_word of its tile and depth
-    # outputs, and the tail past total is the invalid tile at depth 0
+    # the expansion's record sort mode: each record's splat id, its tile and
+    # depth as the field mode gives them, and the sort_word of the two; the
+    # tail past total is the invalid tile at depth 0
     rng = np.random.default_rng(3)
     n = 40
     fields = torch.from_numpy(rng.normal(0, 1, (kr.NUM_FIELDS, n)).astype(np.float32))
@@ -239,9 +259,10 @@ def test_expansion_writes_the_sort_words():
     kw = dict(capacity=4096, gx=4, num_tiles=16, pw=16, ph=16, alpha_min=1 / 255)
     base = kr.expand(fields, tile_min, tile_ext, depth, cum, **kw)
     for key in rs.KEYS:
-        out = kr.expand(fields, tile_min, tile_ext, depth, cum, **kw, key=key)
+        out = kr.expand_ids(fields, tile_min, tile_ext, depth, cum, **kw, key=key)
         assert len(out) == 4
-        for a, b in zip(out[:3], base):
+        assert torch.equal(out[0], kr.splat_ids_plain(cum, kw["capacity"]))
+        for a, b in zip(out[1:3], base[1:]):
             assert torch.equal(a, b)
         assert torch.equal(out[3], kr.sort_word(out[1], out[2], key))
         assert torch.equal(out[3], kr.expand_plain(fields, tile_min, tile_ext, depth,
@@ -253,21 +274,26 @@ def test_expansion_writes_the_sort_words():
 
 def test_record_sort_checks_raise_what_they_say():
     f = torch.zeros((kr.NUM_FIELDS, 8))
+    pairs = kt.splat_pairs_plain(f)
+    ids = torch.arange(8, dtype=torch.int32)
     w = torch.zeros(8, dtype=torch.int32)
     with pytest.raises(ValueError, match="key must be"):
-        rs.record_sort_fwd(f, (w,), 4, "reference")
+        rs.record_sort_splats_fwd(f, pairs, ids, (w,), 4, "reference")
     with pytest.raises(ValueError, match="2 words"):
-        rs.record_sort_fwd(f, (w,), 4, "pair")
+        rs.record_sort_splats_fwd(f, pairs, ids, (w,), 4, "pair")
     with pytest.raises(ValueError, match="512 tiles"):
-        rs.record_sort_fwd(f, (w,), 2040, "packed")
+        rs.record_sort_splats_fwd(f, pairs, ids, (w,), 2040, "packed")
     with pytest.raises(TypeError, match="int32"):
-        rs.record_sort_fwd(f, (w.to(torch.int64),), 4, "packed")
+        rs.record_sort_splats_fwd(f, pairs, ids, (w.to(torch.int64),), 4, "packed")
+    with pytest.raises(ValueError, match="pairs"):
+        rs.record_sort_splats_fwd(f, pairs[1:], ids, (w,), 4, "packed")
+    meta = [t.to("meta") for t in (f, pairs, ids, w)]
     with pytest.raises(ValueError, match="CPU or all on one CUDA device"):
-        rs.record_sort_fwd(f.to("meta"), (w.to("meta"),), 4, "packed")
-    before = rs.record_sort.launches, rs.record_unsort.launches
-    sf, bounds = rs.record_sort(f.requires_grad_(True), (w,), 4, "packed")
+        rs.record_sort_splats_fwd(*meta[:3], (meta[3],), 4, "packed")
+    before = rs.record_sort_splats.launches, rs.record_unsort.launches
+    sf, bounds = _one_a_splat(f.requires_grad_(True), (w,), 4, "packed")
     torch.autograd.grad(sf.sum(), f)
-    assert (rs.record_sort.launches, rs.record_unsort.launches) == before
+    assert (rs.record_sort_splats.launches, rs.record_unsort.launches) == before
     assert bounds.tolist() == [0, 8, 8, 8, 8]
 
 
@@ -301,6 +327,41 @@ def _port_args(**opts):
             torch.from_numpy(a["vp"])) + cam + (RenderConfig(**FRAME, **opts),)
 
 
+class FieldSort(torch.autograd.Function):
+    """The stable sort of the records' own fields (9, C) on the CPU:
+    ``record_sort_plain``, with ``unsort_plain`` (in the cotangent mode) as
+    its gradient."""
+
+    @staticmethod
+    def forward(ctx, fields, words, num_tiles, key):
+        sf, bounds, si = rs.record_sort_plain(fields, words, num_tiles, key)
+        ctx.save_for_backward(si)
+        ctx.mark_non_differentiable(bounds)
+        return sf, bounds
+
+    @staticmethod
+    def backward(ctx, g, _g_bounds):
+        (si,) = ctx.saved_tensors
+        return rs.unsort_plain(g.contiguous(), si, rs._paired(None)), None, None, None
+
+
+def field_route(p, view, vp, fx, fy, tx, ty, w, h, cfg):
+    """The frame through the expansion's field mode, the splat table's
+    fields copied record by record (``records.expand``, whose gradient is
+    the segment sum), and the sort of those fields (``FieldSort``): the
+    route before the stage sorted by splat."""
+    table, prep = fastpath.splat_table(p, view, vp, fx, fy, tx, ty, w, h, cfg)
+    rec = kr.expand(*table, ks.cumsum(prep["counts"]),
+                    **fastpath.expand_kwargs(p["means"].shape[0], w, h, cfg))
+    key = fastpath.record_key(cfg)
+    sf, bounds = FieldSort.apply(rec[0], rs.words_of(rec[1], rec[2], key), cfg.num_tiles,
+                                 key)
+    tiled, _, _ = fastpath.composite_sorted(
+        sf, bounds, num_tiles=cfg.num_tiles,
+        tile_ids=torch.arange(cfg.num_tiles, dtype=torch.int32), width=w, height=h, cfg=cfg)
+    return assemble_image(tiled[:, :, 0:3], tiled[:, :, 3], w, h, cfg)
+
+
 @pytest.mark.parametrize("opts", [dict(depth_key="pair"), dict(depth_key="packed"),
                                   dict(depth_key="packed", record_sort="radix")],
                          ids=["pair", "packed", "packed-radix"])
@@ -315,6 +376,8 @@ def test_render_fast_record_sort_matches_jax_fast_path(opts):
     np.testing.assert_array_equal(aux["bounds"].numpy(), j_bounds)
     img_t, st_t = fastpath.render_fast(*targs)
     assert st_t["binned_records"].item() == int(j_bounds[-1]) > 0
+    # bit for bit the route through the expansion's fields and their sort
+    assert torch.equal(img_t, field_route(*targs))
     if opts["depth_key"] == "pair":
         img_j, st_j = jax_fastpath.render_fast(*jargs)
         np.testing.assert_allclose(img_t.numpy(), np.asarray(img_j), atol=1e-4)

@@ -30,8 +30,6 @@ from openglgaussiansplattingrenderer_tpu_torch.config import RenderConfig
 from openglgaussiansplattingrenderer_tpu_torch.convert import params_from_numpy
 from openglgaussiansplattingrenderer_tpu_torch.ops import fastpath
 from openglgaussiansplattingrenderer_tpu_torch.ops.compositing import assemble_image
-from openglgaussiansplattingrenderer_tpu_torch.ops.kernels import records as kr
-from openglgaussiansplattingrenderer_tpu_torch.ops.kernels import scan as ks
 from _torch_threads import one_torch_thread  # noqa: F401, E402
 
 pytestmark = pytest.mark.usefixtures("one_torch_thread")
@@ -131,12 +129,8 @@ def test_full_frame_unchanged(hoist):
     cfg = targs[-1]
     img, stats = fastpath.render_fast(*targs, stop_after=None)
     # the frame composed from the stages' own functions, as before the cut
-    table, prep = fastpath.splat_table(*targs)
-    counts = prep["counts"]
-    if cfg.hoist_depth_sort:
-        table, counts = fastpath.depth_sort_table(table, prep)
-    rec = kr.expand(*table, ks.cumsum(counts), **fastpath.expand_kwargs(N, W, H, cfg))
-    sf, bounds = fastpath.sort_records(*rec, W, H, cfg)
+    stage = fastpath.expand_depth_records(*targs, key=fastpath.record_key(cfg))
+    sf, bounds = fastpath.sort_records(*stage, W, H, cfg)
     tiled, _, _ = fastpath.composite_sorted(
         sf, bounds, num_tiles=cfg.num_tiles,
         tile_ids=torch.arange(cfg.num_tiles, dtype=torch.int32), width=W, height=H,
