@@ -10,7 +10,7 @@ Builds the port's CUDA kernels from ``openglgaussiansplattingrenderer_tpu_torch/
 csrc`` (nvcc, at first use), then:
 
 1. prints the card, its power limit, the PyTorch version and the build time;
-2. holds each of the eleven kernels and the record sort stage against
+2. holds each of the fourteen kernels and the record sort stage against
    their plain PyTorch versions on the card and times both (CUDA events, median), beside the least time the
    card could take for the same work (``bound_ms``) and, where one PyTorch
    call computes the same function, that call's time (``library_ms``):
@@ -62,7 +62,18 @@ csrc`` (nvcc, at first use), then:
    records, on the 10k-splat gate scene and on the clustered flagship
    frame's sorted records (one tile of some 660,000 records; the plain
    versions timed once there), with a seeded cotangent and each backward
-   fed its own forward's output;
+   fed its own forward's output; the train step's kernels: Adam
+   (``csrc/adam.cu``, one launch for every key) on 3,616,103 splats with
+   SH 0 and SH 3 keys, bit-equal to the written-out Adam and its addition,
+   beside ``torch.optim.Adam(fused=True)``, after probes of the rounding it
+   copies from torch on the card; the loss's forward and backward
+   (``csrc/ssim_loss.cu``) on the training path's image (the perturbed
+   start's frame, read in place, against the clean frame) within
+   ``LOSS_REL_TOL`` / ``LOSS_GRAD_TOL`` of their separable restatement,
+   the loss within ``CONV_LOSS_TOL`` of the conv form, the gradient within
+   ``CONV_GRAD_TOL`` of autograd of the conv form in float64 and no
+   further from it than the float32 conv form's, repeating bit for bit,
+   timed beside the cuDNN conv form;
 3. drives the render path through ``render_arrays`` at the reference's
    operating point (3,616,103 splats at 1024x512, uniform and clustered
    scenes), with every kernel launch counter reset just before and read
@@ -99,9 +110,16 @@ csrc`` (nvcc, at first use), then:
    with perturbed colours against its clean render, counters reset just
    before and read just after; checks finite gradients, zero overflow, a
    falling loss and the training path's seven kernels launched (the splat
-   table, its backward and the un-sort once a step) and the record sort
-   stage; the five losses bit-equal on the plain record sort stage; times
-   forward + backward and the whole step;
+   table, its backward, the un-sort, Adam and the loss's backward once a
+   step, the loss's forward twice: its tiles, then their sum) and the
+   record sort stage; the five losses bit-equal on the
+   plain record sort stage, and within ``TRAIN_LOSS_ROUTE_TOL`` with the
+   conv-form loss forced; times forward + backward and the whole step, and
+   profiles the step on the parent's route (the conv-form loss, the
+   written-out Adam) and on the kernels: split by events into render
+   forward, loss forward, loss backward, render backward, Adam and the
+   rest (``scripts/torch_turn_bench.py`` ``train_step_split``), and one
+   step's device records by name (its ``device_top``);
 5b. trains with adaptive density control: the same scene and target padded
    to 4,194,304 rows (the padded start's frame bit-equal to the unpadded
    one under ``tight_rect`` True and False, the live record count
@@ -114,7 +132,8 @@ csrc`` (nvcc, at first use), then:
    extent, opacity reset at step 10), counters reset just before and read
    just after: clones and splits, every dead row parked, the alive count
    balanced, zero overflow, a finite loss falling at every step no densify
-   precedes before the reset, kernels 1-5, 10 and 11 launched; then the training CLI
+   precedes before the reset, kernels 1-5, 10, 11, Adam and the loss's
+   launched; then the training CLI
    (``scripts/torch_train_cli.py``) in-process on the card: the PLY route
    on the uniform flagship (three 1024x512 orbit views, twenty steps,
    ``--densify``) and the COLMAP route on a small workspace, each with its
@@ -151,7 +170,8 @@ csrc`` (nvcc, at first use), then:
    and one step on two gloo ranks of the card (four NCCL ranks under
    ``--cards 4``), the frame bit-equal to the single-controller frame and
    the gradients within ``GRAD_REL_TOL``; the training CLI's
-   ``--mesh2d`` and ``--data-parallel`` routes; ``dryrun_multichip(8)``;
+   ``--mesh2d`` and ``--data-parallel`` routes; ``dryrun_multichip(8)``
+   (Adam and the loss kernels launched);
    the scaling report (``scripts/torch_scaling_report.py``); times and
    peak memory;
 10. the scripts of ``scripts/torch_*.py`` that port the JAX package's
@@ -171,7 +191,8 @@ csrc`` (nvcc, at first use), then:
    backward a step), the novel-view bench (CAP 1,000,000, GT 500,000, 72
    poses, cut to 1,000 steps in two segments so that its resume runs: a
    finite holdout PSNR) and the holdout eval of its checkpoint (within
-   0.01 dB of the bench's); kernels 1-7, 10 and 11 launched in the phase;
+   0.01 dB of the bench's); kernels 1-7, 10, 11, Adam and the loss's
+   launched in the phase;
 7. prints a JSON line of phase [3a]'s numbers, one of phases [8] and [9],
    one of phase [10]'s scripts, a JSON line of per-kernel results and,
    last, the device line.
@@ -274,9 +295,10 @@ FD_REL_TOL = 0.15                  # finite differences, ARCHITECTURE.md:179
 NV_EVAL_TOL_DB = 0.01              # the holdout eval against the bench, same checkpoint
 
 # The card's published peaks (NVIDIA H100 SXM data sheet): device memory
-# rate and float32 rate outside the tensor cores (a multiply-add counts 2).
+# rate, float32 and float64 rates outside the tensor cores (a multiply-add counts 2).
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOP_PER_S = 67e12
+FP64_FLOP_PER_S = 34e12            # float64 outside the tensor cores
 # Float operations a (pixel, record) pair costs the compositor, counted
 # from the kernels' arithmetic with expf as one operation: every visited
 # pair pays u, v, the power, expf, the opacity product and the clamp (12);
@@ -303,6 +325,38 @@ TABLE_SH_SEED, TABLE_SH_SCALE = 13, 0.2
 # backward (the forward's recomputation and the chain rule) likewise.
 TABLE_FWD_FLOP, TABLE_COV_FLOP, TABLE_SH_FLOP = 235, 78, 256
 TABLE_BWD_FLOP, TABLE_COV_BWD_FLOP, TABLE_BWD_SH_FLOP = 430, 211, 480
+# The train step's kernels (rows 14-16) against their plain versions:
+# Adam bit-equal; the loss kernels against the separable restatement of
+# their arithmetic (LOSS_REL_TOL of the loss, LOSS_GRAD_TOL of the largest
+# gradient: the plain version's means are sums in torch's order), against
+# the conv form (CONV_LOSS_TOL of max(1, |loss|)) and against the conv
+# form taken in float64 with autograd (CONV_LOSS_TOL of the loss,
+# CONV_GRAD_TOL of the largest gradient), where the kernels' gradient must
+# also lie no further than the float32 conv form's. The float32 conv form
+# is no gradient reference at 1e-5: E[p^2] - mu^2 cancels in flat regions,
+# and on the card its gradient lies 0.84e-5 to 2.8e-5 of the largest from
+# its own float64 value (float32 separable sums: 1.2e-6 to 1.03e-5; the
+# kernels take theirs in double; PERF.md, PR 16).
+LOSS_REL_TOL, LOSS_GRAD_TOL = 1e-7, 1e-6
+CONV_LOSS_TOL, CONV_GRAD_TOL = 1e-6, 1e-5
+# Phase [5]: five steps with the conv-form loss forced against the kernels'
+# losses, relative (measured 1.035e-6 on the card: PERF.md, PR 16)
+TRAIN_LOSS_ROUTE_TOL = 1e-5
+# Operations, counted from csrc/adam.cu and csrc/ssim_loss.cu with sqrt
+# and division as one: an element of the Adam step (the two moments, the
+# bias-corrected step, the rate and the addition); a map value of the
+# loss's forward (the five sums along the rows, 108, and down the columns,
+# 105, S and its partials, 31) and a pixel value's L1 term (3); a pixel
+# value of the backward (three sums along and down, 126, the combination
+# and the sign, 10). The loss's bound (rows 15, 16) is what the function
+# needs: float32 images, three float32 partials a map value (12 B) and
+# these operations at the float32 rate. The kernels store their partials
+# in float64 (24 B) and compute in float64; that traffic and rate give
+# their own bound (own_bound_ms), reported beside it.
+ADAM_FLOP, LOSS_FWD_FLOP, LOSS_L1_FLOP, LOSS_BWD_FLOP = 14, 244, 3, 136
+# the Adam check's state: a step count past the first, the position rate
+# on its schedule
+ADAM_COUNT, ADAM_SEED = 3, 21
 
 PKG = "openglgaussiansplattingrenderer_tpu_torch"
 TPU_PKG = "openglgaussiansplattingrenderer_tpu"
@@ -329,6 +383,11 @@ KERNELS = {
                     f"{TPU_PKG}/ops/pallas/records.py:255"),
     "record_unsort": (f"{PKG}/csrc/record_gather.cu",
                       f"{TPU_PKG}/ops/pallas/records.py:189"),
+    # the train step around the render: optax's adam and the conv-form loss
+    # with its autodiff, XLA's in the JAX package
+    "adam": (f"{PKG}/csrc/adam.cu", f"{TPU_PKG}/train/trainer.py:90"),
+    "gs_loss": (f"{PKG}/csrc/ssim_loss.cu", f"{TPU_PKG}/train/losses.py:68"),
+    "gs_loss_bwd": (f"{PKG}/csrc/ssim_loss.cu", f"{TPU_PKG}/train/losses.py:68"),
 }
 # the sources of the record sort stage's launches: the counts and the
 # passes (kernels 6 and 7's file), the gathers of the splat ids and of the
@@ -339,9 +398,12 @@ RECORD_SORT_SOURCES = (f"{PKG}/csrc/radix_sort.cu", f"{PKG}/csrc/record_gather.c
 # may run on the kernel stage of a default frame
 LIBRARY_SORT_NAMES = ("sort", "index_select", "indexselect", "searchsorted",
                       "index_copy", "indexcopy")
-# the kernels every frame launches, and those a forward + backward adds
-FRAME_KERNELS = ("splat_table", "cumsum", "expand", "composite")
-STEP_KERNELS = FRAME_KERNELS + ("segsum", "composite_bwd", "splat_table_bwd")
+# the kernels every frame launches, those a forward + backward adds, and
+# those a train step on the training loss adds: Adam and the loss's two
+GRAD_KERNELS = ("splat_table", "cumsum", "expand", "composite", "segsum", "composite_bwd",
+                "splat_table_bwd")
+FRAME_KERNELS = GRAD_KERNELS[:4]
+STEP_KERNELS = GRAD_KERNELS + ("adam", "gs_loss", "gs_loss_bwd")
 
 
 def log(msg: str) -> None:
@@ -527,56 +589,31 @@ def device_names(fn):
     return Counter(e.name for e in prof.events() if e.device_type == DeviceType.CUDA)
 
 
-def device_top(fn, top: int = 8):
-    """What one call of ``fn`` runs on the device, from torch.profiler's
-    kernel and memset records of one profiled call (after a warm-up call):
-    (device ms in all, records, [(name, ms, count)] of the ``top`` names by
-    time). The profiler at times loses a record (``device_us``), so the sum
-    is a floor. None where it held no device record."""
-    from collections import defaultdict
-
-    import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    ms, count = defaultdict(float), defaultdict(int)
-    for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
-            ms[e.name[:70]] += e.time_range.elapsed_us() / 1e3
-            count[e.name[:70]] += 1
-    if not ms:
-        return None
-    ranked = sorted(ms, key=ms.get, reverse=True)[:top]
-    return sum(ms.values()), sum(count.values()), [(k, ms[k], count[k]) for k in ranked]
-
-
 def image_diff(a, b):
     """(max abs diff, pixels whose max channel diff exceeds 1e-3)."""
     d = (a - b).abs()
     return float(d.max()), int((d.amax(dim=-1) > 1e-3).sum())
 
 
-def bound(nbytes: float, flops: float) -> dict:
+def bound(nbytes: float, flops: float, flop_rate: float = FP32_FLOP_PER_S) -> dict:
     """The least time the card could take: the larger of the bytes over
-    the memory rate and the operations over the float32 rate."""
+    the memory rate and the operations over their type's rate (float32
+    unless told)."""
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_flops = flops / FP32_FLOP_PER_S * 1e3
+    t_flops = flops / flop_rate * 1e3
     return {"bound_ms": max(t_bytes, t_flops),
             "bound_by": "bytes" if t_bytes >= t_flops else "operations"}
 
 
 def kernel_wrappers():
     """name -> wrapper holding the launch counter, in KERNELS' order."""
+    from openglgaussiansplattingrenderer_tpu_torch.ops.kernels import adam as kadam
     from openglgaussiansplattingrenderer_tpu_torch.ops.kernels import composite as kc
     from openglgaussiansplattingrenderer_tpu_torch.ops.kernels import radix_sort as rx
     from openglgaussiansplattingrenderer_tpu_torch.ops.kernels import record_sort as rs
     from openglgaussiansplattingrenderer_tpu_torch.ops.kernels import records as kr
     from openglgaussiansplattingrenderer_tpu_torch.ops.kernels import scan as ks
+    from openglgaussiansplattingrenderer_tpu_torch.ops.kernels import ssim_loss as kl
     from openglgaussiansplattingrenderer_tpu_torch.ops.kernels import table as kt
     from openglgaussiansplattingrenderer_tpu_torch.probes import bucketer_probe, cache_key_probe
 
@@ -586,7 +623,9 @@ def kernel_wrappers():
             "bucketer_level": bucketer_probe.bucketer_level,
             "probe_affine": cache_key_probe.probe_affine,
             "splat_table": kt.splat_table, "splat_table_bwd": kt.splat_table_bwd,
-            "record_sort": rs.record_sort_splats, "record_unsort": rs.record_unsort}
+            "record_sort": rs.record_sort_splats, "record_unsort": rs.record_unsort,
+            "adam": kadam.adam_update, "gs_loss": kl.gs_loss_fwd,
+            "gs_loss_bwd": kl.gs_loss_bwd}
 
 
 def reset_launches() -> None:
@@ -1570,7 +1609,7 @@ def check_oracle(gate, flag):
         f_img_k, f_st = flag.render()
     torch.cuda.synchronize()
     launches = read_launches()
-    for k in STEP_KERNELS:
+    for k in GRAD_KERNELS:
         assert launches[k] > 0, f"{k} kernel never launched in the oracle phase"
 
     # ---- the gate scene's frame
@@ -1671,6 +1710,276 @@ def check_oracle(gate, flag):
     del img_o, f_img_k
     torch.cuda.empty_cache()
     return launches, out
+
+
+@contextlib.contextmanager
+def plain_train_ops():
+    """The train step's loss and Adam on their plain versions, on CUDA
+    tensors too, inside the block (``losses.gs_loss_plain``: the conv form
+    and autograd; ``adam_update_plain`` and the addition): the step as the
+    parent commit takes it."""
+    from openglgaussiansplattingrenderer_tpu_torch.ops.kernels import adam as kadam
+    from openglgaussiansplattingrenderer_tpu_torch.train import losses
+
+    loss, update = losses.gs_loss, kadam.adam_update
+
+    def plain_update(grads, opt_state, lrs, raw):
+        updates, state = kadam.adam_update_plain(grads, opt_state, lrs)
+        return {k: raw[k] + updates[k] for k in lrs}, state
+
+    losses.gs_loss, kadam.adam_update = losses.gs_loss_plain, plain_update
+    try:
+        yield
+    finally:
+        losses.gs_loss, kadam.adam_update = loss, update
+
+
+def train_start(frame):
+    """(the frame with its colours perturbed, the clean frame's RGB): the
+    training path's start and target."""
+    import numpy as np
+    import torch
+
+    with torch.no_grad():
+        target = frame.render()[0][..., :3].contiguous()
+    colors = frame.params["colors"].cpu().numpy()
+    noisy = np.clip(colors + np.random.default_rng(0).normal(0, 40, colors.shape),
+                    5, 250).astype(np.float32)
+    start = frame.with_cfg(frame.cfg)
+    start.params = dict(frame.params, colors=torch.as_tensor(noisy).to(target.device))
+    return start, target
+
+
+def adam_rounding_probe(device):
+    """What the Adam kernel copies of torch's rounding, probed on the card:
+    a CUDA tensor divided by a Python float against its product with the
+    reciprocal taken in double and rounded to float32, at every bias
+    correction of the first 3,000 steps (and how many of those the
+    reciprocal taken in float32 would miss); a product with a Python scalar
+    (1 - b1, b1) against the scalar rounded to float32; sqrt and division
+    against numpy's correctly rounded float32. Raises where the kernel's
+    rule does not hold; returns the counts."""
+    import numpy as np
+    import torch
+
+    from openglgaussiansplattingrenderer_tpu_torch.ops.kernels import adam as kadam
+
+    f32 = np.float32
+    gen = torch.Generator(device=device).manual_seed(5)
+    x = torch.randn(1 << 20, generator=gen, device=device)
+    divisors = sorted({c for n in range(3000) for c in kadam.bias_corrections(n)})
+    float_miss = 0
+    for c in divisors:
+        assert torch.equal(x / c, x * float(f32(1.0 / c))), (
+            f"torch's x / {c!r} on the card is not x * f32(1 / c)")
+        float_miss += float(f32(1.0 / c)) != float(f32(1.0) / f32(c))
+    for c in (1.0 - kadam.ADAM_B1, kadam.ADAM_B1, 1.0 - kadam.ADAM_B2, kadam.ADAM_B2):
+        assert torch.equal(c * x, x * float(f32(c))), c
+    v = x.abs() * 1e-3
+    host = v.cpu().numpy()
+    assert np.array_equal(torch.sqrt(v).cpu().numpy(), np.sqrt(host)), "sqrt is not IEEE"
+    y = torch.randn(1 << 20, generator=gen, device=device)
+    assert np.array_equal((x / y).cpu().numpy(), x.cpu().numpy() / y.cpu().numpy()), (
+        "division is not IEEE")
+    return {"divisors": len(divisors), "f32_reciprocal_misses": float_miss}
+
+
+def adam_case(n, sh, device):
+    """(raw, grads, state ADAM_COUNT steps in, rates) of ``n`` splats, SH 0
+    keys or with sh_rest (SH 3), drawn from ADAM_SEED on the card."""
+    import torch
+
+    from openglgaussiansplattingrenderer_tpu_torch.train.trainer import (
+        TrainConfig,
+        make_optimizer,
+    )
+
+    widths = {"means": (3,), "log_scales": (3,), "quats": (4,), "logit_opacities": (),
+              "colors": (3,)}
+    if sh:
+        widths["sh_rest"] = (15, 3)
+    gen = torch.Generator(device=device).manual_seed(ADAM_SEED)
+
+    def draw(w, scale):
+        return torch.randn((n, *w), generator=gen, device=device) * scale
+
+    raw = {k: draw(w, 1.0) for k, w in widths.items()}
+    grads = {k: draw(w, 1e-3) for k, w in widths.items()}
+    state = {"count": ADAM_COUNT, "mu": {k: draw(w, 1e-3) for k, w in widths.items()},
+             "nu": {k: draw(w, 1e-4).abs() for k, w in widths.items()}}
+    opt = make_optimizer(TrainConfig(lr_means_final=1.6e-6, lr_means_decay_steps=30_000),
+                         tuple(widths))
+    return raw, grads, state, {k: opt.learning_rate(k, ADAM_COUNT) for k in widths}
+
+
+def check_adam(device, results):
+    """Kernel A (row 14) on the flagship's 3,616,103 splats, SH 0 and SH 3
+    keys: bit-equal to the written-out Adam and its addition, timed beside
+    it and beside torch.optim.Adam(fused=True)'s step on the same tensors."""
+    import torch
+
+    from openglgaussiansplattingrenderer_tpu_torch.ops.kernels import adam as kadam
+
+    probe = adam_rounding_probe(device)
+    rows = {}
+    for name, sh in (("sh0", False), ("sh3", True)):
+        raw, grads, state, lrs = adam_case(FLAG_SPLATS, sh, device)
+        new, st = kadam.adam_update(grads, state, lrs, raw)
+        upd, want_st = kadam.adam_update_plain(grads, state, lrs)
+        for k in lrs:
+            want = raw[k] + upd[k]
+            assert torch.equal(new[k], want), f"adam {name}: {k} differs from the plain step"
+            for m in ("mu", "nu"):
+                assert torch.equal(st[m][k], want_st[m][k]), f"adam {name}: {m}[{k}] differs"
+        del new, st, upd, want_st
+        elems = sum(v.numel() for v in raw.values())
+
+        def kernel():
+            return kadam.adam_update(grads, state, lrs, raw)
+
+        def plain():
+            u, s = kadam.adam_update_plain(grads, state, lrs)
+            return {k: raw[k] + u[k] for k in lrs}, s
+
+        params = [v.clone() for v in raw.values()]
+        for p, g in zip(params, grads.values()):
+            p.grad = g.clone()
+        lib = torch.optim.Adam([{"params": [p], "lr": lrs[k]} for k, p in zip(lrs, params)],
+                               betas=(kadam.ADAM_B1, kadam.ADAM_B2), eps=kadam.ADAM_EPS,
+                               fused=True)
+        rows[name] = dict(elements=elems, max_abs_err=0.0, ms=cuda_ms(kernel),
+                          device_us=device_us(kernel, calls=20),
+                          plain_ms=cuda_ms(plain), plain_device_us=device_us(plain, calls=5),
+                          library_ms=cuda_ms(lib.step),
+                          library_device_us=device_us(lib.step, calls=20),
+                          host_us=host_us(kernel, reps=50),
+                          **bound(28 * elems, ADAM_FLOP * elems))
+        del lib, params, raw, grads, state
+        torch.cuda.empty_cache()
+        r = rows[name]
+        log(f"[2] adam {name}: {FLAG_SPLATS} splats, {len(lrs)} keys, {elems} floats: "
+            f"bit-equal to the plain step (p', m', v'); kernel {r['ms']:.4f} ms, on the "
+            f"device alone {r['device_us']} us, the wrapper's host {r['host_us']:.1f} us; "
+            f"plain {r['plain_ms']:.4f} ms (device {r['plain_device_us']} us); "
+            f"torch.optim.Adam(fused=True) {r['library_ms']:.4f} ms (device "
+            f"{r['library_device_us']} us); bound {r['bound_ms']:.4f} ms ({r['bound_by']})")
+    log(f"[2] adam rounding probes on the card: x / c equals x * f32(1 / c in double) "
+        f"at {probe['divisors']} bias corrections (the float32 reciprocal differs at "
+        f"{probe['f32_reciprocal_misses']}); products with b1, 1 - b1, b2, 1 - b2 round "
+        f"the scalar to float32; sqrt and division equal numpy's float32")
+    results["adam"] = dict(rows["sh0"], sh3=rows["sh3"], rounding=probe)
+
+
+@contextlib.contextmanager
+def float64_window():
+    """``losses.ssim_map``'s window in float64 inside the block, so that the
+    conv form (``losses.gs_loss_plain``) of float64 images runs in float64
+    throughout: the reference the loss kernels' gradient is held to."""
+    from openglgaussiansplattingrenderer_tpu_torch.train import losses
+
+    window = losses._gaussian_window
+    losses._gaussian_window = lambda *a, **k: window(*a, **k).double()
+    try:
+        yield
+    finally:
+        losses._gaussian_window = window
+
+
+def conv_loss_f64(pred, target, lam):
+    """(loss, gradient) of the conv form in float64, autograd's."""
+    import torch
+
+    from openglgaussiansplattingrenderer_tpu_torch.train import losses
+
+    with torch.enable_grad(), float64_window():
+        x = pred.detach().double().requires_grad_(True)
+        loss = losses.gs_loss_plain(x, target.double(), lam)
+        (grad,) = torch.autograd.grad(loss, x)
+    return float(loss), grad
+
+
+def check_loss(frame, results):
+    """Kernels B and C (rows 15, 16) on the training path's image: the
+    noisy-colour start frame's RGB (a view of the rendered (H, W, 4) image)
+    against the clean frame's; held to the separable restatement and to the
+    conv form with autograd, timed beside both."""
+    import torch
+
+    from openglgaussiansplattingrenderer_tpu_torch.ops.kernels import ssim_loss as kl
+    from openglgaussiansplattingrenderer_tpu_torch.train import losses
+
+    start, target = train_start(frame)
+    with torch.no_grad():
+        pred = start.render()[0][..., :3]
+    lam = 0.2
+    with torch.enable_grad():
+        x = pred.detach().requires_grad_(True)
+        loss = losses.gs_loss(x, target, lam)
+        (grad,) = torch.autograd.grad(loss, x)
+        again = losses.gs_loss(x, target, lam)
+        (grad2,) = torch.autograd.grad(again, x)
+        y = pred.detach().requires_grad_(True)
+        conv = losses.gs_loss_plain(y, target, lam)
+        (conv_g,) = torch.autograd.grad(conv, y, retain_graph=True)
+    assert torch.equal(loss, again) and torch.equal(grad, grad2), "the loss kernels do not repeat"
+    one = torch.ones((), device=pred.device)
+    sep = kl.gs_loss_separable_plain(pred, target, lam)
+    sep_g = kl.gs_loss_separable_bwd_plain(pred, target, one, lam)
+    v64, g64 = conv_loss_f64(pred, target, lam)
+    lv, cv, sv = float(loss), float(conv), float(sep)
+    err_s, err_c, err_64 = abs(lv - sv), abs(lv - cv), abs(lv - v64)
+    gerr_s = float((grad - sep_g).abs().max())
+    gerr_c = float((grad - conv_g).abs().max())
+    gs_scale, g64_scale = float(sep_g.abs().max()), float(g64.abs().max())
+    gerr_64 = float((grad.double() - g64).abs().max())
+    conv_64 = float((conv_g.double() - g64).abs().max())
+    del g64
+    assert err_s <= LOSS_REL_TOL * abs(sv), f"loss kernel vs separable plain: {lv} vs {sv}"
+    assert gerr_s <= LOSS_GRAD_TOL * gs_scale, f"loss backward vs separable plain: {gerr_s}"
+    assert err_c <= CONV_LOSS_TOL * max(1.0, abs(cv)), f"loss kernel vs conv form: {lv} vs {cv}"
+    assert err_64 <= CONV_LOSS_TOL * max(1.0, abs(v64)), f"loss kernel vs float64: {lv} vs {v64}"
+    assert gerr_64 <= CONV_GRAD_TOL * g64_scale and gerr_64 <= conv_64, (
+        f"loss backward vs the float64 conv form: {gerr_64:.3e} (the float32 conv form's "
+        f"{conv_64:.3e}) of {g64_scale:.3e}")
+    _, parts = kl.gs_loss_fwd(pred, target, lam)
+    h, w, c = pred.shape
+    px, m = h * w * c, (h - 10) * (w - 10) * c
+    fwd = dict(max_abs_err=err_s, conv_abs_err=err_c, f64_abs_err=err_64, loss=lv,
+               ms=cuda_ms(lambda: kl.gs_loss_fwd(pred, target, lam)),
+               device_us=device_us(lambda: kl.gs_loss_fwd(pred, target, lam), calls=20),
+               plain_ms=cuda_ms(lambda: kl.gs_loss_separable_plain(pred, target, lam)),
+               library_ms=cuda_ms(lambda: losses.gs_loss_plain(pred, target, lam)),
+               library_device_us=device_us(lambda: losses.gs_loss_plain(pred, target, lam),
+                                           calls=5),
+               **bound(8 * px + 12 * m + 4, LOSS_FWD_FLOP * m + LOSS_L1_FLOP * px),
+               own_bound_ms=bound(8 * px + 24 * m + 4, LOSS_FWD_FLOP * m + LOSS_L1_FLOP * px,
+                                  FP64_FLOP_PER_S)["bound_ms"])
+    bwd = dict(max_abs_err=gerr_s, conv_abs_err=gerr_c, f64_abs_err=gerr_64,
+               conv_f64_abs_err=conv_64, grad_scale=gs_scale,
+               ms=cuda_ms(lambda: kl.gs_loss_bwd(pred, target, parts, one, lam)),
+               device_us=device_us(lambda: kl.gs_loss_bwd(pred, target, parts, one, lam),
+                                   calls=20),
+               plain_ms=cuda_ms(lambda: kl.gs_loss_separable_bwd_plain(pred, target, one, lam)),
+               library_ms=cuda_ms(lambda: torch.autograd.grad(conv, y, retain_graph=True)),
+               library_device_us=device_us(
+                   lambda: torch.autograd.grad(conv, y, retain_graph=True), calls=5),
+               **bound(12 * px + 12 * m, LOSS_BWD_FLOP * px),
+               own_bound_ms=bound(12 * px + 24 * m, LOSS_BWD_FLOP * px,
+                                  FP64_FLOP_PER_S)["bound_ms"])
+    results["gs_loss"], results["gs_loss_bwd"] = fwd, bwd
+    log(f"[2] gs_loss on the training path's {w}x{h} image (pred read in place from the "
+        f"(H, W, 4) frame): loss {lv:.9f}, separable plain {sv:.9f} ({err_s:.3e}), conv form "
+        f"{cv:.9f} ({err_c:.3e}), conv form in float64 {v64:.12f} ({err_64:.3e}); gradient "
+        f"vs separable plain {gerr_s:.3e} of {gs_scale:.3e}, vs autograd of the float64 "
+        f"conv form {gerr_64:.3e} of {g64_scale:.3e} (the float32 conv form's {conv_64:.3e}; "
+        f"kernel vs float32 conv form {gerr_c:.3e}); loss and gradient repeat bit for bit")
+    for what, r in (("forward", fwd), ("backward", bwd)):
+        log(f"[2] gs_loss {what}: kernel {r['ms']:.4f} ms, on the device alone "
+            f"{r['device_us']} us; separable plain {r['plain_ms']:.4f} ms; conv form "
+            f"(cuDNN{', autograd' if what == 'backward' else ''}) {r['library_ms']:.4f} ms, "
+            f"device {r['library_device_us']} us; bound {r['bound_ms']:.4f} ms "
+            f"({r['bound_by']}; with the kernel's float64 partials and arithmetic "
+            f"{r['own_bound_ms']:.4f} ms)")
 
 
 def check_composite(name, frame, plain_once=False, records=None):
@@ -1894,13 +2203,7 @@ def check_training(frame):
     w, h = frame.size
     n = frame.params["means"].shape[0]
     tc = TrainConfig(lambda_dssim=0.2)
-    with torch.no_grad():
-        target = frame.render()[0][..., :3].contiguous()
-    colors = frame.params["colors"].cpu().numpy()
-    noisy = np.clip(colors + np.random.default_rng(0).normal(0, 40, colors.shape),
-                    5, 250).astype(np.float32)
-    start = frame.with_cfg(frame.cfg)
-    start.params = dict(frame.params, colors=torch.as_tensor(noisy).to(target.device))
+    start, target = train_start(frame)
 
     def train_loss(img):
         return losses.gs_loss(img[..., :3], target, tc.lambda_dssim)
@@ -1933,6 +2236,44 @@ def check_training(frame):
     assert plain_hist == loss_hist, (
         f"training losses differ between the sort routes: {loss_hist} vs {plain_hist}")
     del plain_state, plain_metrics
+    # and with the conv-form loss (cuDNN, autograd) forced: within
+    # TRAIN_LOSS_ROUTE_TOL of the loss kernels' losses
+    with torch.no_grad():
+        conv_state = step.init(raw_from_params(start.params))
+    conv_hist = []
+    kernel_loss, losses.gs_loss = losses.gs_loss, losses.gs_loss_plain
+    try:
+        for _ in range(TRAIN_STEPS):
+            conv_state, conv_metrics = step(conv_state, target, *frame.args[:6])
+            conv_hist.append(float(conv_metrics["loss"]))
+    finally:
+        losses.gs_loss = kernel_loss
+    route_rel = max(abs(a - b) / abs(b) for a, b in zip(loss_hist, conv_hist))
+    assert route_rel <= TRAIN_LOSS_ROUTE_TOL, (
+        f"training losses of the loss kernels and the conv form: {loss_hist} vs {conv_hist}")
+    del conv_state, conv_metrics
+    # where the step's time goes: the parent's route (the conv-form loss and
+    # the written-out Adam), then the kernels'; events the host records as it
+    # reaches each part, and one step's device records by name
+    turn = load_script("torch_turn_bench")
+    with torch.no_grad():
+        state0 = step.init(raw_from_params(start.params))
+    one = (target, *frame.args[:6])
+    profile = {}
+    for route in ("plain", "kernels"):
+        with plain_train_ops() if route == "plain" else contextlib.nullcontext():
+            parts = turn.train_step_split(step, state0, one, REPS)
+            top = turn.device_top(lambda: step(state0, *one))
+        profile[route] = dict(parts, device_top=top)
+        log(f"[5] train step on the {route} loss and Adam, split by events (ms, median of "
+            f"{REPS}): " + ", ".join(f"{k} {v:.4f}" for k, v in parts.items()))
+        if top is None:
+            log(f"[5] train step on the {route} loss and Adam: device time not measured")
+        else:
+            log(f"[5] train step on the {route} loss and Adam, on the device: "
+                f"{top[0]:.4f} ms in {top[1]} records; "
+                + "; ".join(f"{k} {v:.4f} ms x{c}" for k, v, c in top[2]))
+    del state0
 
     gnorm = metrics["densify_grad_norm"]
     assert gnorm.shape == (n,) and bool(torch.isfinite(gnorm).all()), gnorm.shape
@@ -1950,8 +2291,11 @@ def check_training(frame):
     assert overflow == 0, f"training: overflow {overflow} after the steps"
     for k in STEP_KERNELS:
         assert launches[k] > 0, f"{k} kernel never launched on the training path"
-    for k in ("splat_table", "splat_table_bwd", "record_unsort"):
-        assert launches[k] == TRAIN_STEPS, f"{k}: {launches[k]} launches in {TRAIN_STEPS} steps"
+    # a step calls each of these once; the loss's forward is two launches
+    for k, per_call in (("splat_table", 1), ("splat_table_bwd", 1), ("record_unsort", 1),
+                        ("adam", 1), ("gs_loss", 2), ("gs_loss_bwd", 1)):
+        assert launches[k] == per_call * TRAIN_STEPS, (
+            f"{k}: {launches[k]} launches in {TRAIN_STEPS} steps")
     assert launches["record_sort"] > 0, "the record sort stage never launched in training"
     log(f"[5] training, {n} splats at {w}x{h}, {TRAIN_STEPS} steps of "
         f"make_train_step (lambda_dssim {tc.lambda_dssim}, grad norms): loss "
@@ -1959,9 +2303,12 @@ def check_training(frame):
         + "; psnr " + " ".join(f"{v:.3f}" for v in psnr_hist)
         + f"; step wall ms {' '.join(f'{v:.1f}' for v in wall)} (median "
         f"{statistics.median(wall):.3f}); the same losses bit for bit on the plain "
-        f"record sort stage; forward + backward {fb_ms:.3f} ms; "
+        f"record sort stage; with the conv-form loss "
+        + " ".join(f"{v:.6f}" for v in conv_hist)
+        + f" ({route_rel:.3e} apart); forward + backward {fb_ms:.3f} ms; "
         f"largest colour move {moved:.4f}; overflow {overflow}")
     log(f"[5] kernel launches on the training path: {launches}")
+    log(json.dumps({"train_step_profile": profile}))
     return launches, statistics.median(wall)
 
 
@@ -2561,7 +2908,7 @@ def check_multi_device(scenes, gate, dev, mesh):
             if name == "uniform":
                 for tag, fn, ms in (("sharded", lambda: sharded(f, padded, zero_drop),
                                      ms_s), ("single", f.render, ms_1)):
-                    top = device_top(fn)
+                    top = load_script("torch_turn_bench").device_top(fn, top=8)
                     if top is None:
                         log(f"[9] {tag} frame on the device alone: not measured")
                         continue
@@ -2838,7 +3185,8 @@ def check_multi_device(scenes, gate, dev, mesh):
         warnings.simplefilter("always")
         ov2 = fs.warn_on_sharded_overflow({"overflow": over2d}, float(M2_DS), M2_DS)
     assert ov2 == 0 and not wl, f"2-D step: overflow {ov2} at exch_factor {M2_DS}"
-    for k in STEP_KERNELS:
+    # the 2-D step scores its own per-tile ssim_map, not gs_loss
+    for k in GRAD_KERNELS + ("adam",):
         assert launches["mesh2d"][k] > 0, f"{k} never launched by the 2-D step"
     # against two single-view make_train_step steps: Adam's first moment
     # after one step is (1 - b1) times the gradient it used
@@ -2936,7 +3284,7 @@ def check_multi_device(scenes, gate, dev, mesh):
     assert all(np.isfinite(h["loss"]) for h in hist2 + hist1), (hist2, hist1)
     assert int(alive2.sum()) == hist2[-1]["alive"]
     assert all(h["overflow"] == 0 for h in hist2 + hist1), (hist2, hist1)
-    for k in STEP_KERNELS:
+    for k in GRAD_KERNELS + ("adam",):
         assert launches["mesh2d_fit"][k] > 0, f"{k} never launched by fit_scene_2d"
     assert torch.equal(alive2, alive1), "2-D fit: alive mask differs from the 1x1 fit's"
     loss_apart = max(abs(h2["loss"] - h1["loss"]) / h1["loss"] for h2, h1 in zip(hist2, hist1))
@@ -3222,8 +3570,12 @@ def check_dryrun_and_scaling(cards):
     from openglgaussiansplattingrenderer_tpu_torch.dryrun import dryrun_multichip
 
     t0 = time.perf_counter()
+    reset_launches()
     dry = dryrun_multichip(DRYRUN_SHARDS)
     dry["seconds"] = time.perf_counter() - t0
+    dry["launches"] = read_launches()
+    for k in ("adam", "gs_loss", "gs_loss_bwd"):
+        assert dry["launches"][k] > 0, f"{k} never launched by the dry run's train steps"
     t0 = time.perf_counter()
     with contextlib.redirect_stdout(io.StringIO()):      # its JSON line: kept below
         rep = load_script("torch_scaling_report").main(["--json"])
@@ -3503,6 +3855,10 @@ def main(argv=None) -> int:
                                          plain_once=True)
         results["composite"] = dict(fwd, gate_scene=gate_fwd, clustered=cl_fwd)
         results["composite_bwd"] = dict(bwd, gate_scene=gate_bwd, clustered=cl_bwd)
+        # the train step's kernels: Adam on the flagship's splats, the loss
+        # on the training path's image
+        check_adam(dev, results)
+        check_loss(frames["uniform"], results)
 
         # ---- 3. the render path --------------------------------------------
         reset_launches()

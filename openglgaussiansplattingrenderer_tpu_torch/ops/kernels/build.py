@@ -60,6 +60,14 @@ SIGNATURES = {
     "gs_table_sh_row_max": [],
     "gs_splat_table": [_P] * 23 + [_L, _P],
     "gs_splat_table_bwd": [_P] * 19 + [_L, _P],
+    "gs_adam_args_size": [],
+    "gs_adam_block_elems": [],
+    "gs_adam_step": [_P, _P],
+    "gs_loss_args_size": [],
+    "gs_loss_tile_w": [],
+    "gs_loss_tile_h": [],
+    "gs_loss_forward": [_P] * 7,
+    "gs_loss_backward": [_P] * 7,
 }
 
 # filled by the build: seconds the nvcc run took (0.0 when the library was

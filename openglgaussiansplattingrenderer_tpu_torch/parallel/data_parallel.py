@@ -157,9 +157,9 @@ def make_dp_train_step(cfg: RenderConfig, tc: TrainConfig, width: int,
             new_raw, new_opt = [], []
             for d, dev in enumerate(mesh.devices):
                 with on_device(dev):
-                    updates, st = optimizer.update({k: grads[k][d] for k in keys},
-                                                   opt_state[d])
-                    new_raw.append({k: raw[d][k] + updates[k] for k in keys})
+                    r, st = optimizer.update({k: grads[k][d] for k in keys},
+                                             opt_state[d], raw[d])
+                    new_raw.append(r)
                     new_opt.append(st)
             if with_grad_norms:
                 gnorm = psum([s[3] for s in per_shard], mesh)[0]

@@ -367,8 +367,9 @@ def make_2d_train_step(cfg: RenderConfig, tc: TrainConfig, width: int,
             for s, (dev, st) in enumerate(zip(mesh.devices[0], opt_state)):
                 with on_device(dev):
                     g = dict(zip(keys, gs[s * len(keys):(s + 1) * len(keys)]))
-                    updates, st = optimizer.update(g, st)
-                    new_raw.append({k: leaves[s][k].detach() + updates[k] for k in keys})
+                    r, st = optimizer.update(
+                        g, st, {k: leaves[s][k].detach() for k in keys})
+                    new_raw.append(r)
                     new_opt.append(st)
             if not with_grad_norms:
                 return new_raw, new_opt, loss.detach(), psnr, overflow

@@ -373,8 +373,8 @@ def step_sharded(raw: List[Params], opt_state: List[dict], optimizer,
     with torch.no_grad():
         for i, (r, st) in enumerate(zip(leaves, opt_state)):
             g = dict(zip(keys, grads[i * len(keys):(i + 1) * len(keys)]))
-            updates, st = optimizer.update(g, st)
-            new_raw.append({k: r[k].detach() + updates[k] for k in keys})
+            new, st = optimizer.update(g, st, {k: r[k].detach() for k in keys})
+            new_raw.append(new)
             new_opt.append(st)
     return new_raw, new_opt, loss.detach(), aux
 

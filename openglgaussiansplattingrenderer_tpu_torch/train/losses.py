@@ -3,13 +3,18 @@
 Counterpart of ``openglgaussiansplattingrenderer_tpu/train/losses.py``:
 L1 + D-SSIM, the standard 3DGS training loss (Kerbl et al. sec. 5). Images
 are (..., H, W, C) as in the JAX package; the windowed statistics permute
-to PyTorch's channel-first layout inside.
+to PyTorch's channel-first layout inside. ``gs_loss``, the training loss,
+runs two kernels on CUDA tensors (``ops/kernels/ssim_loss.py``: forward and
+backward) and its conv form, ``gs_loss_plain``, on the CPU; ``ssim``,
+``dssim``, ``ssim_map`` and ``psnr`` keep the conv form everywhere.
 """
 
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+
+from openglgaussiansplattingrenderer_tpu_torch.ops.kernels import ssim_loss as kl
 
 
 def l1(pred: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
@@ -67,10 +72,21 @@ def dssim(pred: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
     return (1.0 - ssim(pred, target)) / 2.0
 
 
+def gs_loss_plain(pred: torch.Tensor, target: torch.Tensor,
+                  lambda_dssim: float = 0.2) -> torch.Tensor:
+    """The conv form of ``gs_loss``, differentiated by autograd."""
+    return (1.0 - lambda_dssim) * l1(pred, target) + lambda_dssim * dssim(pred, target)
+
+
 def gs_loss(pred: torch.Tensor, target: torch.Tensor,
             lambda_dssim: float = 0.2) -> torch.Tensor:
-    """(1 - lambda)*L1 + lambda*D-SSIM, the 3DGS paper's training loss."""
-    return (1.0 - lambda_dssim) * l1(pred, target) + lambda_dssim * dssim(pred, target)
+    """(1 - lambda)*L1 + lambda*D-SSIM, the 3DGS paper's training loss, of
+    float32 (H, W, C) or (B, H, W, C) images at least 11 x 11. On CUDA
+    tensors the loss kernels (``kl.GsLoss``), which raise where they
+    cannot run; on CPU tensors ``gs_loss_plain``."""
+    if kl.check_inputs(pred, target):
+        return kl.GsLoss.apply(pred, target, lambda_dssim)
+    return gs_loss_plain(pred, target, lambda_dssim)
 
 
 def psnr(pred: torch.Tensor, target: torch.Tensor) -> torch.Tensor:

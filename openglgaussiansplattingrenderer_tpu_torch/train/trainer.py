@@ -3,10 +3,12 @@
 Counterpart of ``openglgaussiansplattingrenderer_tpu/train/trainer.py``.
 Parameters are optimised in *raw* (pre-activation) space like standard 3DGS
 training: log-scales, logit-opacity, unnormalised quaternions, raw colours.
-The optimizer is per-tensor Adam written out on tensors (the JAX package's
+The optimizer is per-tensor Adam (the JAX package's
 ``optax.multi_transform`` of ``optax.adam``): b1 0.9, b2 0.999, eps 1e-8
 added outside the square root, bias correction by the step count, no weight
-decay. Checkpoints are plain npz files.
+decay; on CUDA tensors one kernel launch steps every tensor
+(``ops/kernels/adam.py``), on CPU tensors its plain version. The loss is
+``losses.gs_loss``. Checkpoints are plain npz files.
 """
 
 from __future__ import annotations
@@ -19,6 +21,7 @@ import numpy as np
 import torch
 
 from openglgaussiansplattingrenderer_tpu_torch.config import RenderConfig
+from openglgaussiansplattingrenderer_tpu_torch.ops.kernels import adam as kadam
 from openglgaussiansplattingrenderer_tpu_torch.ops.transforms import (
     inverse_sigmoid,
     sigmoid,
@@ -26,7 +29,6 @@ from openglgaussiansplattingrenderer_tpu_torch.ops.transforms import (
 from openglgaussiansplattingrenderer_tpu_torch.render import render_arrays
 from openglgaussiansplattingrenderer_tpu_torch.train import losses
 
-ADAM_B1, ADAM_B2, ADAM_EPS = 0.9, 0.999, 1e-8
 DEFAULT_KEYS = ("means", "log_scales", "quats", "logit_opacities", "colors")
 
 
@@ -123,23 +125,14 @@ class Optimizer:
                 "mu": {k: torch.zeros_like(raw[k]) for k in self.keys},
                 "nu": {k: torch.zeros_like(raw[k]) for k in self.keys}}
 
-    def update(self, grads: Dict[str, torch.Tensor], opt_state: dict
-               ) -> Tuple[Dict[str, torch.Tensor], dict]:
-        """(updates to add to the raw tensors, new state)."""
+    def update(self, grads: Dict[str, torch.Tensor], opt_state: dict,
+               raw: Dict[str, torch.Tensor]) -> Tuple[Dict[str, torch.Tensor], dict]:
+        """(the raw tensors with the step added, new state). On CUDA tensors
+        one launch of the Adam kernel steps every key, bit-equal to
+        ``kadam.adam_update_plain`` and the addition there."""
         count = opt_state["count"]
-        # bias corrections in float32, as the JAX package's optimizer takes
-        # them: 1 - b2^t cancels, so its float32 rounding shows in the step
-        f32 = np.float32
-        c1 = float(f32(1.0) - f32(ADAM_B1) ** f32(count + 1))
-        c2 = float(f32(1.0) - f32(ADAM_B2) ** f32(count + 1))
-        mu, nu, updates = {}, {}, {}
-        for k in self.keys:
-            g = grads[k]
-            mu[k] = ADAM_B1 * opt_state["mu"][k] + (1.0 - ADAM_B1) * g
-            nu[k] = ADAM_B2 * opt_state["nu"][k] + (1.0 - ADAM_B2) * (g * g)
-            step = (mu[k] / c1) / (torch.sqrt(nu[k] / c2) + ADAM_EPS)
-            updates[k] = -self.learning_rate(k, count) * step
-        return updates, {"count": count + 1, "mu": mu, "nu": nu}
+        lrs = {k: self.learning_rate(k, count) for k in self.keys}
+        return kadam.adam_update(grads, opt_state, lrs, raw)
 
 
 def make_optimizer(tc: TrainConfig, keys=DEFAULT_KEYS) -> Optimizer:
@@ -208,8 +201,8 @@ def make_train_step(cfg: RenderConfig, tc: TrainConfig, width: int,
             elif with_grad_norms:
                 metrics["densify_grad_norm"] = torch.linalg.vector_norm(
                     grads["means"], dim=-1)
-            updates, opt_state = optimizer.update(grads, state.opt_state)
-            new_raw = {k: raw[k].detach() + updates[k] for k in keys}
+            new_raw, opt_state = optimizer.update(
+                grads, state.opt_state, {k: raw[k].detach() for k in keys})
         return TrainState(new_raw, opt_state, state.step + 1), metrics
 
     run.init = lambda raw: TrainState(dict(raw), optimizer.init(raw), 0)

@@ -21,7 +21,11 @@ scenes (the uniform and the clustered flagship, 3,616,103 splats at
 - the forward + backward of ``mean(img[..., :3] ** 2)``, the same way;
 - on the uniform flagship, the train step (``make_train_step``, L1 + 0.2
   D-SSIM, with the densification statistic): host clock to a sync, the
-  median of ``--reps`` steps.
+  median of ``--reps`` steps; CUDA events around a step; its device time
+  alone and the names that take most of it (``step_top``); and the step
+  split by events the host records as it reaches each part
+  (``train_step_split``: render forward, loss forward, loss backward, render
+  backward, Adam, the rest), the median of ``--reps`` steps each.
 
 Prints the card and its power limit, a JSON line a scene, then one JSON
 object last. Needs a card: without CUDA it exits with "no CUDA device".
@@ -102,6 +106,115 @@ def device_ms(fn, runs: int = 3):
     return statistics.median(sums) if sums else None
 
 
+def device_top(fn, top: int = 10):
+    """What one call of ``fn`` runs on the device, from torch.profiler's
+    kernel and memset records of one profiled call (after a warm-up call):
+    (device ms in all, records, [(name, ms, count)] of the ``top`` names by
+    time). The profiler at times loses a record, so the sum is a floor.
+    None where it held no device record."""
+    from collections import defaultdict
+
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    ms, count = defaultdict(float), defaultdict(int)
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            ms[e.name[:70]] += e.time_range.elapsed_us() / 1e3
+            count[e.name[:70]] += 1
+    if not ms:
+        return None
+    ranked = sorted(ms, key=ms.get, reverse=True)[:top]
+    return sum(ms.values()), sum(count.values()), [(k, ms[k], count[k]) for k in ranked]
+
+
+SPLIT = ("render_fwd", "loss_fwd", "loss_bwd", "render_bwd", "adam", "rest")
+
+
+def train_step_split(step, state, args, reps: int):
+    """The train step ``step(state, *args)`` of ``train/trainer.py``'s
+    ``make_train_step`` split by CUDA events that the host records as it
+    reaches each part: render forward (``params_from_raw`` and
+    ``render_arrays``), loss forward (``losses.gs_loss``), loss backward
+    (from the loss to its image input), render backward (the rest of the
+    backward, PSNR and the densify statistic), Adam
+    (``Optimizer.update`` and the addition to the raw tensors), and the
+    rest of the events' step (a parent's trainer adds the updates to the
+    raw tensors there); with the step on the host clock to a sync. Wraps
+    ``losses.gs_loss`` and ``Optimizer.update`` for the call, so it times
+    any checkout's trainer.
+    Medians in ms of ``reps`` steps after two."""
+    import torch
+
+    from openglgaussiansplattingrenderer_tpu_torch.train import losses, trainer
+
+    ev = {}
+
+    def mark(name):
+        e = torch.cuda.Event(enable_timing=True)
+        e.record()
+        ev[name] = e
+
+    class Mark(torch.autograd.Function):
+        """Identity whose backward records an event."""
+
+        @staticmethod
+        def forward(ctx, x, name):
+            ctx.name = name
+            return x.view_as(x)
+
+        @staticmethod
+        def backward(ctx, g):
+            mark(ctx.name)
+            return g, None
+
+    loss_fn, update = losses.gs_loss, trainer.Optimizer.update
+
+    def timed_loss(pred, target, *a, **k):
+        mark("loss0")
+        out = loss_fn(Mark.apply(pred, "bwd1"), target, *a, **k)
+        mark("loss1")
+        return Mark.apply(out, "bwd0")
+
+    def timed_update(self, *a, **k):
+        mark("adam0")
+        out = update(self, *a, **k)
+        mark("adam1")
+        return out
+
+    losses.gs_loss, trainer.Optimizer.update = timed_loss, timed_update
+    parts = {k: [] for k in SPLIT + ("events", "host")}
+    try:
+        for i in range(reps + 2):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            mark("start")
+            state, metrics = step(state, *args)
+            mark("end")
+            float(metrics["loss"])
+            torch.cuda.synchronize()
+            host = (time.perf_counter() - t0) * 1e3
+            if i < 2:
+                continue
+            t = {"render_fwd": ("start", "loss0"), "loss_fwd": ("loss0", "loss1"),
+                 "loss_bwd": ("bwd0", "bwd1"), "render_bwd": ("bwd1", "adam0"),
+                 "adam": ("adam0", "adam1"), "events": ("start", "end")}
+            got = {k: ev[a].elapsed_time(ev[b]) for k, (a, b) in t.items()}
+            got["rest"] = got["events"] - sum(got[k] for k in SPLIT[:-1])
+            got["host"] = host
+            for k, v in got.items():
+                parts[k].append(v)
+    finally:
+        losses.gs_loss, trainer.Optimizer.update = loss_fn, update
+    return {k: statistics.median(v) for k, v in parts.items()}
+
+
 def main(argv=None) -> dict:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--root", default=str(REPO),
@@ -180,6 +293,11 @@ def main(argv=None) -> dict:
                 if i >= 2:
                     wall.append((time.perf_counter() - t0) * 1e3)
             row["train_step_ms"] = statistics.median(wall)
+            one = (target, *cam[:6])
+            row["train_step_events_ms"] = events_ms(lambda: step(state, *one), args.reps)
+            row["train_step_device_ms"] = device_ms(lambda: step(state, *one))
+            row["train_step_split"] = train_step_split(step, state, one, args.reps)
+            row["step_top"] = device_top(lambda: step(state, *one))
             del state, step, target
         out[name] = row
         print(name, json.dumps(row), flush=True)

@@ -1071,3 +1071,186 @@ def test_splat_table_on_no_splats_and_through_autograd(card):
     with pytest.raises(NotImplementedError, match="no backward"):
         (fields, _, _, _), _ = kt.splat_table(leaves, view, vp, *args[2:], cfg)
         torch.autograd.grad(fields, list(leaves.values()), g, create_graph=True)
+
+
+# ---- the train step's kernels: Adam (csrc/adam.cu), the loss (csrc/ssim_loss.cu)
+
+ADAM_KEYS = {"means": 3, "log_scales": 3, "quats": 4, "logit_opacities": 1, "colors": 3}
+
+
+def _adam_case(n, seed, device, sh=False, offset=0):
+    """raw, grads and a state three steps in, on ``device``; ``offset``
+    puts every tensor that many floats past its allocation's start (off the
+    16-byte grid for 1)."""
+    g = torch.Generator().manual_seed(seed)
+    widths = dict(ADAM_KEYS, **({"sh_rest": 45} if sh else {}))
+
+    def t(w, scale=1.0):
+        x = (torch.randn(n * w + offset, generator=g) * scale).to(device)
+        return x[offset:].view((n, w) if w > 1 else (n,))
+
+    raw = {k: t(w) for k, w in widths.items()}
+    grads = {k: t(w, 1e-3) for k, w in widths.items()}
+    grads["colors"][: n // 3] = 0.0                          # no gradient: a zero step
+    state = {"count": 3, "mu": {k: t(w, 1e-3) for k, w in widths.items()},
+             "nu": {k: t(w, 1e-4).abs() for k, w in widths.items()}}
+    return raw, grads, state
+
+
+@pytest.mark.parametrize("n,sh,offset", [(1, False, 0), (5, False, 0), (1024, False, 0),
+                                         (4097, True, 0), (100_003, True, 0),
+                                         (100_003, False, 1), (3, True, 1), (5_000, True, 2)])
+def test_adam_kernel_bit_equal_to_plain(card, n, sh, offset):
+    from openglgaussiansplattingrenderer_tpu_torch.ops.kernels import adam as kadam
+
+    raw, grads, state = _adam_case(n, n + offset, card, sh, offset)
+    kept = {k: v.clone() for k, v in raw.items()}, {
+        m: {k: v.clone() for k, v in state[m].items()} for m in ("mu", "nu")}
+    tc = trainer.TrainConfig(lr_means_final=1.6e-6, lr_means_decay_steps=10)
+    opt = trainer.make_optimizer(tc, tuple(raw))
+    before = kadam.adam_update.launches
+    lrs = {k: opt.learning_rate(k, 3) for k in raw}
+    want_u, want_s = kadam.adam_update_plain(grads, state, lrs)
+    new, got_s = opt.update(grads, state, raw)
+    # from zero, p' is the update itself
+    got_u, got_s2 = opt.update(grads, state, {k: torch.zeros_like(v) for k, v in raw.items()})
+    torch.cuda.synchronize()
+    assert kadam.adam_update.launches == before + 2
+    assert got_s["count"] == got_s2["count"] == 4
+    for k in raw:
+        assert torch.equal(new[k], raw[k] + want_u[k]), k
+        assert torch.equal(got_u[k], want_u[k]), k
+        assert torch.equal(raw[k], kept[0][k]), "raw was written"
+        for m in ("mu", "nu"):
+            assert torch.equal(got_s[m][k], want_s[m][k]), (m, k)
+            assert torch.equal(state[m][k], kept[1][m][k]), "the old state was written"
+
+
+def test_adam_kernel_ten_steps_and_a_reset(card):
+    """Ten steps on the card against the plain version, with an opacity
+    moment reset between (a new state dict holding fresh zeros)."""
+    from openglgaussiansplattingrenderer_tpu_torch.ops.kernels import adam as kadam
+    from openglgaussiansplattingrenderer_tpu_torch.train import densify
+
+    raw, grads, _ = _adam_case(9_999, 5, card, sh=True)
+    opt = trainer.make_optimizer(trainer.TrainConfig(lr_means_final=1e-6), tuple(raw))
+    state = plain = opt.init(raw)
+    p, q = raw, raw
+    for i in range(10):
+        g = {k: v * (1.0 + 0.1 * i) for k, v in grads.items()}
+        p, state = opt.update(g, state, p)
+        lrs = {k: opt.learning_rate(k, plain["count"]) for k in raw}
+        u, plain = kadam.adam_update_plain(g, plain, lrs)
+        q = {k: q[k] + u[k] for k in raw}
+        if i == 4:
+            state = densify.reset_opacity_moments(state, 9_999)
+            plain = densify.reset_opacity_moments(plain, 9_999)
+    for k in raw:
+        assert torch.equal(p[k], q[k]), k
+        assert torch.equal(state["nu"][k], plain["nu"][k]), k
+
+
+LOSS_CARD_SHAPES = [(40, 52, 3), (11, 11, 3), (11, 64, 3), (64, 11, 3), (2, 24, 24, 3),
+                    (33, 47, 1), (17, 100, 3), (512, 1024, 3), (3, 61, 35, 3)]
+
+
+def _loss_images(shape, seed, card, strided=True):
+    """(pred, target) on the card: pred the first channels of a wider image
+    (the rendered image's layout), flat in part (E[p^2] - mu^2 cancels)."""
+    g = torch.Generator().manual_seed(seed)
+    img = torch.rand(shape[:-1] + (shape[-1] + 1,), generator=g)
+    img[..., : shape[-3] // 3, :, :] = 0.5
+    target = (img[..., : shape[-1]] + 0.1 * torch.randn(shape, generator=g)).clamp(0, 1)
+    img, target = img.to(card), target.to(card)
+    pred = img[..., : shape[-1]] if strided else img[..., : shape[-1]].contiguous()
+    return pred, target
+
+
+def _conv_loss_f64(pred, target, lam, monkeypatch):
+    """(loss, gradient) of the conv form (``losses.gs_loss_plain``) taken in
+    float64 with autograd: its window cast to double."""
+    from openglgaussiansplattingrenderer_tpu_torch.train import losses
+
+    window = losses._gaussian_window
+    with monkeypatch.context() as m:
+        m.setattr(losses, "_gaussian_window", lambda *a, **k: window(*a, **k).double())
+        x = pred.detach().double().requires_grad_(True)
+        loss = losses.gs_loss_plain(x, target.double(), lam)
+        (grad,) = torch.autograd.grad(loss, x)
+    return float(loss), grad
+
+
+@pytest.mark.parametrize("shape", LOSS_CARD_SHAPES)
+def test_gs_loss_kernels_match_separable_plain_and_conv(card, shape, monkeypatch):
+    from openglgaussiansplattingrenderer_tpu_torch.ops.kernels import ssim_loss as kl
+    from openglgaussiansplattingrenderer_tpu_torch.train import losses
+
+    pred, target = _loss_images(shape, sum(shape), card)
+    x = pred.detach().requires_grad_(True)
+    before = (kl.gs_loss_fwd.launches, kl.gs_loss_bwd.launches)
+    loss = losses.gs_loss(x, target, 0.2)
+    (grad,) = torch.autograd.grad(loss, x)
+    torch.cuda.synchronize()
+    # the forward is two launches: the tiles, then the sum of their slots
+    assert (kl.gs_loss_fwd.launches, kl.gs_loss_bwd.launches) == (before[0] + 2, before[1] + 1)
+    assert grad.shape == pred.shape
+    lv = float(loss.detach())
+    want = kl.gs_loss_separable_plain(pred, target, 0.2)
+    want_g = kl.gs_loss_separable_bwd_plain(pred, target, torch.ones((), device=card), 0.2)
+    assert abs(lv - float(want)) <= 1e-7 * abs(float(want))
+    assert float((grad - want_g).abs().max()) <= 1e-6 * float(want_g.abs().max())
+    # the conv form's loss; its gradient in float64 (the float32 conv form's
+    # own gradient lies up to 3e-5 of the largest from that, in flat regions)
+    with torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
+        cv = float(losses.gs_loss_plain(pred, target, 0.2))
+    assert abs(lv - cv) <= 1e-6 * max(1.0, abs(cv))
+    v64, g64 = _conv_loss_f64(pred, target, 0.2, monkeypatch)
+    assert abs(lv - v64) <= 1e-6 * max(1.0, abs(v64))
+    assert float((grad.double() - g64).abs().max()) <= 1e-5 * float(g64.abs().max())
+
+
+def test_gs_loss_kernels_repeat_and_take_a_cotangent(card):
+    from openglgaussiansplattingrenderer_tpu_torch.ops.kernels import ssim_loss as kl
+    from openglgaussiansplattingrenderer_tpu_torch.train import losses
+
+    pred, target = _loss_images((100, 130, 3), 3, card)
+    x = pred.detach().requires_grad_(True)
+    runs = []
+    for _ in range(3):
+        loss = losses.gs_loss(x, target, 0.3)
+        runs.append((loss.detach(), torch.autograd.grad(3.0 * loss, x)[0]))
+    for loss, grad in runs[1:]:
+        assert torch.equal(loss, runs[0][0]) and torch.equal(grad, runs[0][1])
+    want = kl.gs_loss_separable_bwd_plain(pred, target, torch.full((), 3.0, device=card), 0.3)
+    assert float((runs[0][1] - want).abs().max()) <= 1e-6 * float(want.abs().max())
+    # the contiguous copy of pred gives the same bits as the strided view
+    flat = pred.contiguous()
+    assert torch.equal(losses.gs_loss(flat, target, 0.3), runs[0][0])
+    with pytest.raises(RuntimeError):
+        loss = losses.gs_loss(x, target, 0.3)
+        (g,) = torch.autograd.grad(loss, x, create_graph=True)
+        torch.autograd.grad(g.sum(), x)
+    with pytest.raises(ValueError):
+        losses.gs_loss(x, target.cpu(), 0.3)
+
+
+def test_train_step_launches_adam_and_the_loss_once(card):
+    from openglgaussiansplattingrenderer_tpu_torch.ops.kernels import adam as kadam
+    from openglgaussiansplattingrenderer_tpu_torch.ops.kernels import ssim_loss as kl
+
+    w = h = 64
+    scene = {k: v for k, v in ply_io.make_synthetic_scene(40, seed=8, extent=1.2).items()
+             if k != "sh_rest"}
+    cam = port.Camera(0.0, 0.0, -4.0, width=w, height=h)
+    cfg = port.RenderConfig(chunk=32, dup_capacity_factor=32.0)
+    params = convert.params_from_numpy(scene, card)
+    target = render_stats(params, cam, cfg)[0][..., :3].contiguous()
+    step = trainer.make_train_step(cfg, trainer.TrainConfig(), w, h, with_grad_norms=True)
+    state = step.init(trainer.raw_from_params(dict(params, colors=params["colors"] * 0.8)))
+    bundle = trainer.camera_bundles([cam], card)[0]
+    before = (kadam.adam_update.launches, kl.gs_loss_fwd.launches, kl.gs_loss_bwd.launches)
+    for _ in range(3):
+        state, metrics = step(state, target, *bundle)
+    assert (kadam.adam_update.launches, kl.gs_loss_fwd.launches,
+            kl.gs_loss_bwd.launches) == tuple(b + 3 * n for b, n in zip(before, (1, 2, 1)))
+    assert state.opt_state["count"] == 3 and bool(torch.isfinite(metrics["loss"]))

@@ -130,14 +130,14 @@ def test_dp_step_matches_sequential_mean_and_jax(ndev, batch):
             assert torch.equal(r[k], raw_r[0][k]), "the replicas differ"
     loss_ref, grads, _ = _sequential(raw, batch)
     optimizer = make_optimizer(TC, keys=tuple(sorted(raw)))
-    updates, _ = optimizer.update(grads, optimizer.init(raw))
+    stepped, _ = optimizer.update(grads, optimizer.init(raw), raw)
     assert abs(float(loss) - loss_ref) < 1e-5
     want_raw, want_loss, want_psnr = _jax_step(ndev, batch)
     assert abs(float(loss) - float(want_loss)) <= 1e-4
     assert abs(float(psnr) - float(want_psnr)) <= 1e-2
     for k in raw:
         got = raw_r[0][k].numpy()
-        np.testing.assert_allclose(got, (raw[k] + updates[k]).numpy(), rtol=2e-4,
+        np.testing.assert_allclose(got, stepped[k].numpy(), rtol=2e-4,
                                    atol=1e-6, err_msg=f"dp update mismatch for {k}")
         np.testing.assert_allclose(got, want_raw[k], rtol=2e-4, atol=1e-6,
                                    err_msg=f"dp update vs JAX for {k}")

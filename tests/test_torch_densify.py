@@ -249,7 +249,8 @@ def _adam_states(padded, g=0.1):
     tc = trainer.TrainConfig()
     opt = trainer.make_optimizer(tc, keys=tuple(sorted(padded)))
     state = opt.init(padded)
-    _, state = opt.update({k: torch.full_like(v, g) for k, v in padded.items()}, state)
+    _, state = opt.update({k: torch.full_like(v, g) for k, v in padded.items()}, state,
+                          padded)
     jopt = jax_trainer.make_optimizer(jax_trainer.TrainConfig())
     jp = {k: jnp.asarray(v.numpy()) for k, v in padded.items()}
     jstate = jopt.init(jp)

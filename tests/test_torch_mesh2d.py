@@ -154,10 +154,10 @@ def test_2d_step_matches_sequential_mean(dv, ds):
                         for t, b in zip(targets, bundles)])
     assert abs(float(psnr) - psnr_ref) < 1e-4
     optimizer = make_optimizer(TC, keys=keys)
-    updates, _ = optimizer.update(grads, optimizer.init(raw))
+    stepped, _ = optimizer.update(grads, optimizer.init(raw), raw)
     got = mesh2d.gather_raw_2d(new_raw, "cpu")
     for k in keys:
-        np.testing.assert_allclose(got[k].numpy(), (raw[k] + updates[k]).numpy(), rtol=2e-4,
+        np.testing.assert_allclose(got[k].numpy(), stepped[k].numpy(), rtol=2e-4,
                                    atol=1e-6, err_msg=f"2d update mismatch for {k}")
     # the densify statistic: each view's own norm, summed over the batch
     assert float(gnorm.max()) > 0.0

@@ -208,11 +208,11 @@ def test_sharded_train_step_applies_adam_to_the_sharded_gradients():
     img = sharded.render_sharded(params_from_raw(leaves), *_args(), W, H, CFG, mesh)
     want_loss = _mse(img)
     g = dict(zip(leaves, torch.autograd.grad(want_loss, list(leaves.values()))))
-    updates, state = optimizer.update(g, optimizer.init(raw))
+    stepped, state = optimizer.update(g, optimizer.init(raw), raw)
     assert abs(float(loss) - float(want_loss.detach())) <= 1e-7
     got = sharded.gather_shards(new_raw, "cpu")
     for k in raw:
-        np.testing.assert_allclose(got[k].numpy(), (raw[k] + updates[k]).numpy(),
+        np.testing.assert_allclose(got[k].numpy(), stepped[k].numpy(),
                                    rtol=1e-6, atol=1e-9, err_msg=k)
     assert all(s["count"] == 1 for s in new_opt) and state["count"] == 1
     single, _ = render_arrays(params_from_numpy(scene, "cpu"), *_args(), W, H, CFG)

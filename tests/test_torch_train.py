@@ -235,7 +235,8 @@ def test_position_lr_decay_schedule():
     state, jstate = opt.init(raw), jopt.init(jraw)
     steps_means, steps_colors = [], []
     for i in range(60):
-        updates, state = opt.update(grads, state)
+        # raw stays zero, so the stepped tensors are the updates themselves
+        updates, state = opt.update(grads, state, raw)
         jupdates, jstate = jopt.update(jgrads, jstate, jraw)
         jraw = optax.apply_updates(jraw, jupdates)
         for k in shapes:
@@ -295,7 +296,7 @@ def test_checkpoint_round_trip(tmp_path):
     raw = trainer.raw_from_params(convert.params_from_numpy(scene, "cpu"))
     opt = trainer.make_optimizer(trainer.TrainConfig())
     state = opt.init(raw)
-    _, state = opt.update({k: torch.ones_like(v) for k, v in raw.items()}, state)
+    _, state = opt.update({k: torch.ones_like(v) for k, v in raw.items()}, state, raw)
     path = str(tmp_path / "ckpt")                         # .npz is appended
     trainer.save_checkpoint(path, raw, step=7, opt_state=state,
                             alive=np.arange(10) % 2 == 0)

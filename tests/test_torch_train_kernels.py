@@ -1,0 +1,212 @@
+"""The train step's two kernels' plain versions against the JAX package.
+
+``ops/kernels/adam.py`` (Adam over every raw tensor in one launch) and
+``ops/kernels/ssim_loss.py`` (the L1 + D-SSIM loss and its backward) run
+their kernels only on the card. Here, on the CPU, their plain versions are
+held to the JAX package on inputs drawn from numpy seeds: the written-out
+Adam to optax's ``adam`` through JAX's ``make_optimizer``, and the
+separable restatement of the loss kernels' arithmetic (``ssim_terms``,
+``gs_loss_separable_plain`` and its analytic backward) to ``gs_loss`` and
+``jax.grad`` of its conv form. The argument structs the kernels read and
+the loss's input checks are held here too; the kernels themselves are held
+to these plain versions in ``tests/test_torch_cuda.py`` and ``chip_smoke.py``.
+"""
+
+import ctypes
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import optax
+import pytest
+import torch
+
+from openglgaussiansplattingrenderer_tpu.train import losses as jax_losses
+from openglgaussiansplattingrenderer_tpu.train import trainer as jax_trainer
+
+from openglgaussiansplattingrenderer_tpu_torch.ops.kernels import adam as kadam
+from openglgaussiansplattingrenderer_tpu_torch.ops.kernels import ssim_loss as kl
+from openglgaussiansplattingrenderer_tpu_torch.train import losses, trainer
+from _torch_threads import one_torch_thread  # noqa: F401, E402
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
+
+N = 37
+SHAPES = {"means": (N, 3), "log_scales": (N, 3), "quats": (N, 4),
+          "logit_opacities": (N,), "colors": (N, 3), "sh_rest": (N, 15, 3)}
+SCHEDULE = dict(lr_means=1e-2, lr_means_final=1e-4, lr_means_decay_steps=8,
+                lr_colors=0.25)
+
+
+def _rel(got, want):
+    got = got.detach().numpy() if torch.is_tensor(got) else np.asarray(got)
+    want = np.asarray(want)
+    return float(np.abs(got - want).max() / max(np.abs(want).max(), 1e-30))
+
+
+def _adam_inputs(seed, steps):
+    rng = np.random.default_rng(seed)
+    raw = {k: rng.normal(0, 1, s).astype(np.float32) for k, s in SHAPES.items()}
+    grads = [{k: (rng.normal(0, 1, s) * 10.0 ** rng.uniform(-4, 1)).astype(np.float32)
+              for k, s in SHAPES.items()} for _ in range(steps)]
+    return raw, grads
+
+
+@pytest.mark.parametrize("steps,tol", [(1, 1e-6), (10, 1e-5)])
+def test_adam_update_plain_matches_optax(steps, tol):
+    raw, grads = _adam_inputs(steps, steps)
+    keys = tuple(SHAPES)
+    opt = trainer.make_optimizer(trainer.TrainConfig(**SCHEDULE), keys)
+    jopt = jax_trainer.make_optimizer(jax_trainer.TrainConfig(**SCHEDULE), keys)
+    state = opt.init({k: torch.from_numpy(v) for k, v in raw.items()})
+    jraw = {k: jnp.asarray(v) for k, v in raw.items()}
+    jstate = jopt.init(jraw)
+    p = {k: torch.from_numpy(v) for k, v in raw.items()}
+    for g in grads:
+        lrs = {k: opt.learning_rate(k, state["count"]) for k in keys}
+        updates, state = kadam.adam_update_plain(
+            {k: torch.from_numpy(v) for k, v in g.items()}, state, lrs)
+        p = {k: p[k] + updates[k] for k in keys}
+        jup, jstate = jopt.update({k: jnp.asarray(v) for k, v in g.items()}, jstate, jraw)
+        jraw = optax.apply_updates(jraw, jup)
+    assert state["count"] == steps
+    for k in keys:
+        # the stepped tensors, relative to their largest value (the position
+        # rate decays on the schedule, sh_rest runs at lr_colors / 20)
+        assert _rel(p[k], jraw[k]) <= tol, k
+        if steps == 1:
+            # the step itself, relative to its largest
+            assert _rel(updates[k], jup[k]) <= tol, k
+
+
+def test_optimizer_update_adds_the_step_to_raw():
+    raw, (g,) = _adam_inputs(3, 1)
+    opt = trainer.make_optimizer(trainer.TrainConfig(**SCHEDULE), tuple(SHAPES))
+    raw_t = {k: torch.from_numpy(v) for k, v in raw.items()}
+    g_t = {k: torch.from_numpy(v) for k, v in g.items()}
+    state = opt.init(raw_t)
+    updates, st1 = kadam.adam_update_plain(
+        g_t, state, {k: opt.learning_rate(k, 0) for k in SHAPES})
+    new_raw, st2 = opt.update(g_t, state, raw_t)
+    for k in SHAPES:
+        assert torch.equal(new_raw[k], raw_t[k] + updates[k]), k
+        assert torch.equal(st1["mu"][k], st2["mu"][k]) and torch.equal(st1["nu"][k], st2["nu"][k])
+        assert not state["mu"][k].any(), "the old state was written"
+    assert st1["count"] == st2["count"] == 1
+
+
+def test_adam_args_pack_as_the_kernel_reads_them():
+    ptr = ctypes.sizeof(ctypes.c_void_p)
+    m = kadam.MAX_KEYS
+    assert ctypes.sizeof(kadam.AdamArgs) == 7 * m * ptr + 8 * m + 8 * (m + 1) + 4 * m + 4 * m + 32
+    raw, (g,) = _adam_inputs(4, 1)
+    t = {k: torch.from_numpy(v) for k, v in raw.items()}
+    keys = tuple(SHAPES)
+    p = {k: v.clone() for k, v in t.items()}
+    tensors = {k: (p[k], t[k], t[k], t[k], t[k], t[k], t[k]) for k in keys}
+    lrs = {k: 1e-3 * (i + 1) / 3.0 for i, k in enumerate(keys)}
+    a = kadam.adam_args(tensors, lrs, count=6)
+    c1, c2 = kadam.bias_corrections(6)
+    assert a.keys == len(keys)
+    f32 = np.float32
+    assert a.inv_c1 == f32(1.0 / c1) and a.inv_c2 == f32(1.0 / c2)
+    assert a.one_minus_b1 == f32(1.0 - kadam.ADAM_B1) and a.b2 == f32(kadam.ADAM_B2)
+    assert a.eps == f32(kadam.ADAM_EPS)
+    for i, k in enumerate(keys):
+        assert a.n[i] == t[k].numel()
+        assert a.neg_lr[i] == f32(-lrs[k])
+        assert a.g[i] == t[k].data_ptr()
+        assert a.p[i] == p[k].data_ptr() != a.g[i]
+    # the bias corrections in float32: 1 - 0.999^7
+    assert c2 == float(f32(1.0) - f32(0.999) ** f32(7))
+    with pytest.raises(ValueError, match="keys"):
+        kadam.adam_args({str(i): tensors["means"] for i in range(m + 1)},
+                        {str(i): 1e-3 for i in range(m + 1)}, 0)
+
+
+def _images(seed, shape, flat=False):
+    rng = np.random.default_rng(seed)
+    a = rng.uniform(0, 1, shape).astype(np.float32)
+    if flat:                                        # flat regions: E[p^2] - mu^2 cancels
+        a[..., : shape[-3] // 2, :, :] = 0.25
+    b = np.clip(a + rng.normal(0, 0.1, shape), 0, 1).astype(np.float32)
+    return a, b
+
+
+LOSS_SHAPES = [((40, 52, 3), False), ((11, 11, 3), False), ((11, 64, 3), False),
+               ((64, 11, 3), False), ((2, 24, 24, 3), False), ((40, 52, 3), True)]
+
+
+@pytest.mark.parametrize("shape,flat", LOSS_SHAPES)
+def test_separable_loss_matches_jax(shape, flat):
+    a, b = _images(len(shape) + shape[-2], shape, flat)
+    want = jax_losses.gs_loss(jnp.asarray(a), jnp.asarray(b), 0.2)
+    got = kl.gs_loss_separable_plain(torch.from_numpy(a), torch.from_numpy(b), 0.2)
+    assert got.dtype == torch.float32 and got.dim() == 0
+    assert abs(float(got) - float(want)) <= 1e-6 * max(1.0, abs(float(want)))
+    # the map itself, at ssim_map's tolerance against JAX
+    s, _ = kl.ssim_terms(torch.from_numpy(a), torch.from_numpy(b))
+    want_map = np.asarray(jax_losses.ssim_map(jnp.asarray(a), jnp.asarray(b)))
+    assert s.shape == want_map.shape
+    assert float(np.abs(s.numpy() - want_map).max()) <= 1e-5 * max(1.0, np.abs(want_map).max())
+
+
+@pytest.mark.parametrize("shape,flat", LOSS_SHAPES)
+def test_separable_loss_backward_matches_jax_grad(shape, flat):
+    a, b = _images(len(shape) + shape[-3], shape, flat)
+    want = jax.grad(lambda x: jax_losses.gs_loss(x, jnp.asarray(b), 0.2))(jnp.asarray(a))
+    got = kl.gs_loss_separable_bwd_plain(torch.from_numpy(a), torch.from_numpy(b),
+                                         torch.tensor(1.0), 0.2)
+    assert got.shape == a.shape
+    assert _rel(got, want) <= 1e-5
+    # a cotangent other than one scales it
+    half = kl.gs_loss_separable_bwd_plain(torch.from_numpy(a), torch.from_numpy(b),
+                                          torch.tensor(0.5), 0.2)
+    assert _rel(half, 0.5 * np.asarray(want)) <= 1e-5
+
+
+def test_gs_loss_routes_to_the_conv_form_on_the_cpu():
+    a, b = _images(9, (24, 30, 3))
+    x, y = torch.from_numpy(a), torch.from_numpy(b)
+    assert torch.equal(losses.gs_loss(x, y, 0.2), losses.gs_loss_plain(x, y, 0.2))
+    # the rendered image's first three channels, a strided view
+    img = torch.from_numpy(np.concatenate([a, np.ones_like(a[..., :1])], -1))
+    assert torch.equal(losses.gs_loss(img[..., :3], y, 0.2), losses.gs_loss_plain(x, y, 0.2))
+
+
+@pytest.mark.parametrize("case", ["float64", "short", "narrow", "shapes", "devices", "rank"])
+def test_gs_loss_checks_its_inputs(case):
+    x = torch.rand((16, 16, 3))
+    y = torch.rand((16, 16, 3))
+    bad = {"float64": (x.double(), y.double(), TypeError),
+           "short": (x[:10], y[:10], ValueError),
+           "narrow": (x[:, :10], y[:, :10], ValueError),
+           "shapes": (x, y[:15], ValueError),
+           "devices": (x, torch.empty((16, 16, 3), device="meta"), ValueError),
+           "rank": (x[0], y[0], ValueError)}
+    p, t, err = bad[case]
+    with pytest.raises(err):
+        losses.gs_loss(p, t, 0.2)
+
+
+def test_loss_args_pack_as_the_kernel_reads_them():
+    assert ctypes.sizeof(kl.LossArgs) == 8 * 11 + 8 * 5 + 4 * 4 + 8 * 4 * 2
+    img = torch.zeros((2, 20, 30, 4))
+    pred, target = img[..., :3], torch.zeros((2, 20, 30, 3))
+    a = kl.loss_args(pred, target, 0.2)
+    assert (a.b, a.h, a.w, a.c) == (2, 20, 30, 3)
+    assert tuple(a.ps) == (20 * 30 * 4, 30 * 4, 4, 1)
+    assert tuple(a.ts) == (20 * 30 * 3, 30 * 3, 3, 1)
+    m = 2 * 10 * 20 * 3
+    assert a.coef_ssim == -0.2 / (2 * m) and a.coef_l1 == 0.8 / (2 * 20 * 30 * 3)
+    assert a.lam == 0.2 and a.c1 == kl.C1 and a.c2 == kl.C2
+    g = np.array(a.g[:])
+    assert np.array_equal(g.astype(np.float32), g)           # float32 values, exactly
+    g = g.astype(np.float32)
+    # the window ssim_map uses is the outer product of this Gaussian, which
+    # is symmetric bit for bit (the transpose of the window sum needs it)
+    assert np.array_equal(g, g[::-1]) and abs(float(g.sum()) - 1.0) < 1e-6
+    win = losses._gaussian_window().numpy()
+    assert np.array_equal(np.outer(g, g).astype(np.float32), win)
+    one = kl.loss_args(pred[0], target[0], 0.5)
+    assert (one.b, one.h, one.w, one.c) == (1, 20, 30, 3)
