@@ -299,6 +299,7 @@ NV_EVAL_TOL_DB = 0.01              # the holdout eval against the bench, same ch
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOP_PER_S = 67e12
 FP64_FLOP_PER_S = 34e12            # float64 outside the tensor cores
+FP64_INSTR_PER_S = FP64_FLOP_PER_S / 2
 # Float operations a (pixel, record) pair costs the compositor, counted
 # from the kernels' arithmetic with expf as one operation: every visited
 # pair pays u, v, the power, expf, the opacity product and the clamp (12);
@@ -350,10 +351,18 @@ TRAIN_LOSS_ROUTE_TOL = 1e-5
 # value of the backward (three sums along and down, 126, the combination
 # and the sign, 10). The loss's bound (rows 15, 16) is what the function
 # needs: float32 images, three float32 partials a map value (12 B) and
-# these operations at the float32 rate. The kernels store their partials
-# in float64 (24 B) and compute in float64; that traffic and rate give
-# their own bound (own_bound_ms), reported beside it.
+# these operations at the float32 rate. The kernels' own bound
+# (own_bound_ms), reported beside it: their own bytes (pred's pixels 16 B
+# whole where they stage them so, the three partials a map pixel as 16 B of
+# float32 each, the slots) and their float64 instructions at the card's
+# float64 issue rate, FP64_INSTR_PER_S (an fma counts as one instruction,
+# two of FP64_FLOP_PER_S's operations): a map value of the forward, 44 taps
+# along the rows and 44 down the columns (four sums, an fma each), 3
+# products, S and its partials 29 (the reciprocal counted as one), and a
+# pixel value's L1 sum, 1; a pixel value of the backward, 33 + 33 taps and
+# the combination, 8.
 ADAM_FLOP, LOSS_FWD_FLOP, LOSS_L1_FLOP, LOSS_BWD_FLOP = 14, 244, 3, 136
+LOSS_FWD_DINSTR, LOSS_L1_DINSTR, LOSS_BWD_DINSTR = 120, 1, 74
 # the Adam check's state: a step count past the first, the position rate
 # on its schedule
 ADAM_COUNT, ADAM_SEED = 3, 21
@@ -479,6 +488,19 @@ def cuda_ms_once(fn):
     return result, start.elapsed_time(end)
 
 
+def device_records(prof):
+    """The device's kernel and memset records of a profile, without the
+    spin kernels that bracket a run and without user annotations (a
+    ``record_function`` range, ``torch.optim``'s ``Optimizer.step`` among
+    them, comes back as a device record spanning the kernels it launched;
+    torch's own device totals leave it out too)."""
+    from torch.autograd import DeviceType
+
+    return [e for e in prof.events()
+            if e.device_type == DeviceType.CUDA and "spin_kernel" not in e.name
+            and not getattr(e, "is_user_annotation", False)]
+
+
 def device_us(fn, calls: int = 50, tries: int = 3):
     """Mean time on the device of what one call of ``fn`` launches there, in
     microseconds, from torch.profiler's kernel and memset records: the
@@ -492,7 +514,6 @@ def device_us(fn, calls: int = 50, tries: int = 3):
     from collections import Counter
 
     import torch
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     def records(n):
@@ -502,8 +523,7 @@ def device_us(fn, calls: int = 50, tries: int = 3):
                 fn()
             torch.cuda._sleep(1000)
             torch.cuda.synchronize()
-        return [e for e in prof.events()
-                if e.device_type == DeviceType.CUDA and "spin_kernel" not in e.name]
+        return device_records(prof)
 
     fn()
     torch.cuda.synchronize()
@@ -531,7 +551,6 @@ def device_launches(fn, runs: int = 5):
     kernels as in ``device_us``; a run that holds another number of records
     than the first is left out. None where no run held a record."""
     import torch
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -543,8 +562,7 @@ def device_launches(fn, runs: int = 5):
             fn()
             torch.cuda._sleep(1000)
             torch.cuda.synchronize()
-        got = sorted((e for e in prof.events() if e.device_type == DeviceType.CUDA
-                      and "spin_kernel" not in e.name), key=lambda e: e.time_range.start)
+        got = sorted(device_records(prof), key=lambda e: e.time_range.start)
         seen.append([(e.name, e.time_range.elapsed_us()) for e in got])
     seen = [r for r in seen if r and len(r) == len(seen[0])]
     if not seen:
@@ -578,7 +596,6 @@ def device_names(fn):
     from collections import Counter
 
     import torch
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -586,7 +603,7 @@ def device_names(fn):
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
-    return Counter(e.name for e in prof.events() if e.device_type == DeviceType.CUDA)
+    return Counter(e.name for e in device_records(prof))
 
 
 def image_diff(a, b):
@@ -1852,6 +1869,7 @@ def check_adam(device, results):
                           plain_ms=cuda_ms(plain), plain_device_us=device_us(plain, calls=5),
                           library_ms=cuda_ms(lib.step),
                           library_device_us=device_us(lib.step, calls=20),
+                          library_host_us=host_us(lib.step, reps=50),
                           host_us=host_us(kernel, reps=50),
                           **bound(28 * elems, ADAM_FLOP * elems))
         del lib, params, raw, grads, state
@@ -1862,7 +1880,8 @@ def check_adam(device, results):
             f"device alone {r['device_us']} us, the wrapper's host {r['host_us']:.1f} us; "
             f"plain {r['plain_ms']:.4f} ms (device {r['plain_device_us']} us); "
             f"torch.optim.Adam(fused=True) {r['library_ms']:.4f} ms (device "
-            f"{r['library_device_us']} us); bound {r['bound_ms']:.4f} ms ({r['bound_by']})")
+            f"{r['library_device_us']} us, host {r['library_host_us']:.1f} us); bound "
+            f"{r['bound_ms']:.4f} ms ({r['bound_by']})")
     log(f"[2] adam rounding probes on the card: x / c equals x * f32(1 / c in double) "
         f"at {probe['divisors']} bias corrections (the float32 reciprocal differs at "
         f"{probe['f32_reciprocal_misses']}); products with b1, 1 - b1, b2, 1 - b2 round "
@@ -1943,7 +1962,10 @@ def check_loss(frame, results):
         f"{conv_64:.3e}) of {g64_scale:.3e}")
     _, parts = kl.gs_loss_fwd(pred, target, lam)
     h, w, c = pred.shape
-    px, m = h * w * c, (h - 10) * (w - 10) * c
+    px, m, mpx = h * w * c, (h - 10) * (w - 10) * c, (h - 10) * (w - 10)
+    # the kernels' own bytes: pred's pixels whole where they stage them so
+    pred_bytes = 16 * h * w if kl.stages_whole_pixels(pred) else 4 * px
+    blocks = kl.plan(pred, target, lam)[2]
     fwd = dict(max_abs_err=err_s, conv_abs_err=err_c, f64_abs_err=err_64, loss=lv,
                ms=cuda_ms(lambda: kl.gs_loss_fwd(pred, target, lam)),
                device_us=device_us(lambda: kl.gs_loss_fwd(pred, target, lam), calls=20),
@@ -1951,9 +1973,11 @@ def check_loss(frame, results):
                library_ms=cuda_ms(lambda: losses.gs_loss_plain(pred, target, lam)),
                library_device_us=device_us(lambda: losses.gs_loss_plain(pred, target, lam),
                                            calls=5),
+               host_us=host_us(lambda: kl.gs_loss_fwd(pred, target, lam), reps=50),
                **bound(8 * px + 12 * m + 4, LOSS_FWD_FLOP * m + LOSS_L1_FLOP * px),
-               own_bound_ms=bound(8 * px + 24 * m + 4, LOSS_FWD_FLOP * m + LOSS_L1_FLOP * px,
-                                  FP64_FLOP_PER_S)["bound_ms"])
+               own_bound_ms=bound(pred_bytes + 4 * px + 48 * mpx + 16 * blocks + 4,
+                                  LOSS_FWD_DINSTR * m + LOSS_L1_DINSTR * px,
+                                  FP64_INSTR_PER_S)["bound_ms"])
     bwd = dict(max_abs_err=gerr_s, conv_abs_err=gerr_c, f64_abs_err=gerr_64,
                conv_f64_abs_err=conv_64, grad_scale=gs_scale,
                ms=cuda_ms(lambda: kl.gs_loss_bwd(pred, target, parts, one, lam)),
@@ -1963,9 +1987,11 @@ def check_loss(frame, results):
                library_ms=cuda_ms(lambda: torch.autograd.grad(conv, y, retain_graph=True)),
                library_device_us=device_us(
                    lambda: torch.autograd.grad(conv, y, retain_graph=True), calls=5),
+               host_us=host_us(lambda: kl.gs_loss_bwd(pred, target, parts, one, lam),
+                               reps=50),
                **bound(12 * px + 12 * m, LOSS_BWD_FLOP * px),
-               own_bound_ms=bound(12 * px + 24 * m, LOSS_BWD_FLOP * px,
-                                  FP64_FLOP_PER_S)["bound_ms"])
+               own_bound_ms=bound(pred_bytes + 8 * px + 48 * mpx, LOSS_BWD_DINSTR * px,
+                                  FP64_INSTR_PER_S)["bound_ms"])
     results["gs_loss"], results["gs_loss_bwd"] = fwd, bwd
     log(f"[2] gs_loss on the training path's {w}x{h} image (pred read in place from the "
         f"(H, W, 4) frame): loss {lv:.9f}, separable plain {sv:.9f} ({err_s:.3e}), conv form "
@@ -1975,10 +2001,11 @@ def check_loss(frame, results):
         f"kernel vs float32 conv form {gerr_c:.3e}); loss and gradient repeat bit for bit")
     for what, r in (("forward", fwd), ("backward", bwd)):
         log(f"[2] gs_loss {what}: kernel {r['ms']:.4f} ms, on the device alone "
-            f"{r['device_us']} us; separable plain {r['plain_ms']:.4f} ms; conv form "
+            f"{r['device_us']} us, the wrapper's host {r['host_us']:.1f} us; separable "
+            f"plain {r['plain_ms']:.4f} ms; conv form "
             f"(cuDNN{', autograd' if what == 'backward' else ''}) {r['library_ms']:.4f} ms, "
             f"device {r['library_device_us']} us; bound {r['bound_ms']:.4f} ms "
-            f"({r['bound_by']}; with the kernel's float64 partials and arithmetic "
+            f"({r['bound_by']}; the kernels' own bytes and float64 instructions "
             f"{r['own_bound_ms']:.4f} ms)")
 
 

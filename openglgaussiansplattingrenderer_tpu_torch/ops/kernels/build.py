@@ -64,8 +64,8 @@ SIGNATURES = {
     "gs_adam_block_elems": [],
     "gs_adam_step": [_P, _P],
     "gs_loss_args_size": [],
-    "gs_loss_tile_w": [],
-    "gs_loss_tile_h": [],
+    "gs_loss_partial_bytes": [],
+    "gs_loss_plan": [_P],
     "gs_loss_forward": [_P] * 7,
     "gs_loss_backward": [_P] * 7,
 }

@@ -25,7 +25,9 @@ scenes (the uniform and the clustered flagship, 3,616,103 splats at
   alone and the names that take most of it (``step_top``); and the step
   split by events the host records as it reaches each part
   (``train_step_split``: render forward, loss forward, loss backward, render
-  backward, Adam, the rest), the median of ``--reps`` steps each.
+  backward, Adam, the rest), the median of ``--reps`` steps each; and
+  the loss's two kernels alone on the step's images (``loss_kernels``:
+  device ms, events ms, host us).
 
 Prints the card and its power limit, a JSON line a scene, then one JSON
 object last. Needs a card: without CUDA it exits with "no CUDA device".
@@ -132,6 +134,26 @@ def device_top(fn, top: int = 10):
         return None
     ranked = sorted(ms, key=ms.get, reverse=True)[:top]
     return sum(ms.values()), sum(count.values()), [(k, ms[k], count[k]) for k in ranked]
+
+
+def loss_kernels(render_arrays, render_args, target, lam, reps: int) -> dict:
+    """The loss's forward and backward wrappers (``ssim_loss.gs_loss_fwd``,
+    ``gs_loss_bwd`` of the package timed) on the noisy start's rendered
+    RGB, read in place, against the clean frame's: device ms, events ms
+    and host us (the call's return, the device idle before it), each as
+    ``device_ms``, ``events_ms`` and ``host_ms`` take them."""
+    import torch
+
+    from openglgaussiansplattingrenderer_tpu_torch.ops.kernels import ssim_loss as kl
+
+    with torch.no_grad():
+        pred = render_arrays(*render_args)[0][..., :3]
+    one = torch.ones((), device=pred.device)
+    _, parts = kl.gs_loss_fwd(pred, target, lam)
+    calls = {"forward": lambda: kl.gs_loss_fwd(pred, target, lam),
+             "backward": lambda: kl.gs_loss_bwd(pred, target, parts, one, lam)}
+    return {name: {"device_ms": device_ms(fn), "events_ms": events_ms(fn, reps),
+                   "host_us": host_ms(fn, reps) * 1e3} for name, fn in calls.items()}
 
 
 SPLIT = ("render_fwd", "loss_fwd", "loss_bwd", "render_bwd", "adam", "rest")
@@ -298,6 +320,9 @@ def main(argv=None) -> dict:
             row["train_step_device_ms"] = device_ms(lambda: step(state, *one))
             row["train_step_split"] = train_step_split(step, state, one, args.reps)
             row["step_top"] = device_top(lambda: step(state, *one))
+            row["loss_kernels"] = loss_kernels(
+                render_arrays, (dict(params, colors=torch.as_tensor(noisy, device=dev)), *cam,
+                                cfg), target, tc.lambda_dssim, args.reps)
             del state, step, target
         out[name] = row
         print(name, json.dumps(row), flush=True)

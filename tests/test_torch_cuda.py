@@ -1151,7 +1151,8 @@ def test_adam_kernel_ten_steps_and_a_reset(card):
 
 
 LOSS_CARD_SHAPES = [(40, 52, 3), (11, 11, 3), (11, 64, 3), (64, 11, 3), (2, 24, 24, 3),
-                    (33, 47, 1), (17, 100, 3), (512, 1024, 3), (3, 61, 35, 3)]
+                    (33, 47, 1), (17, 100, 3), (512, 1024, 3), (3, 61, 35, 3), (37, 70, 3),
+                    (2, 45, 75, 3), (30, 40, 6)]
 
 
 def _loss_images(shape, seed, card, strided=True):
@@ -1207,6 +1208,54 @@ def test_gs_loss_kernels_match_separable_plain_and_conv(card, shape, monkeypatch
     v64, g64 = _conv_loss_f64(pred, target, 0.2, monkeypatch)
     assert abs(lv - v64) <= 1e-6 * max(1.0, abs(v64))
     assert float((grad.double() - g64).abs().max()) <= 1e-5 * float(g64.abs().max())
+
+
+@pytest.mark.parametrize("shape", [(37, 70, 3), (2, 45, 75, 3), (29, 35, 2), (40, 64, 3)])
+@pytest.mark.parametrize("layout", ["frame view", "contiguous", "unaligned offset"])
+def test_gs_loss_kernels_stage_either_path(card, shape, layout):
+    """pred 16 bytes a pixel (the rendered (..., H, W, 4) frame's view) or 4
+    bytes an element (a contiguous copy; a view one float off 16 bytes):
+    the same bits, held to the separable restatement; target's rows 16
+    bytes a copy where a row's floats end on 16 bytes (40 x 64), else 4
+    bytes an element."""
+    from openglgaussiansplattingrenderer_tpu_torch.ops.kernels import ssim_loss as kl
+    from openglgaussiansplattingrenderer_tpu_torch.train import losses
+
+    pred, target = _loss_images(shape, sum(shape) + 1, card)
+    c = shape[-1]
+    if layout == "frame view":          # an (..., H, W, 4) frame's first channels
+        wide = torch.zeros(shape[:-1] + (4,), device=card)
+        wide[..., :c] = pred
+        pred = wide[..., :c]
+    elif layout == "contiguous":
+        pred = pred.contiguous()
+    else:
+        wide = torch.zeros(shape[:-1] + (c + 1,), device=card)
+        wide[..., 1:] = pred
+        pred = wide[..., 1:]
+    assert kl.stages_whole_pixels(pred) is (layout == "frame view")
+    assert kl.stages_rows(target) is (shape[-2] * c % 4 == 0)
+    x = pred.detach().requires_grad_(True)
+    before = (kl.gs_loss_fwd.launches, kl.gs_loss_bwd.launches)
+    loss = losses.gs_loss(x, target, 0.2)
+    (grad,) = torch.autograd.grad(loss, x)
+    torch.cuda.synchronize()
+    assert (kl.gs_loss_fwd.launches, kl.gs_loss_bwd.launches) == (before[0] + 2, before[1] + 1)
+    want = kl.gs_loss_separable_plain(pred, target, 0.2)
+    want_g = kl.gs_loss_separable_bwd_plain(pred, target, torch.ones((), device=card), 0.2)
+    assert abs(float(loss) - float(want)) <= 1e-7 * abs(float(want))
+    assert float((grad - want_g).abs().max()) <= 1e-6 * float(want_g.abs().max())
+    # the other path's bits: the staging moves the same floats
+    other = pred.contiguous() if layout == "frame view" else torch.zeros(
+        shape[:-1] + (4,), device=card)
+    if layout != "frame view":
+        other[..., :c] = pred
+        other = other[..., :c]
+    assert kl.stages_whole_pixels(other) is (layout != "frame view")
+    y = other.detach().requires_grad_(True)
+    again = losses.gs_loss(y, target, 0.2)
+    assert torch.equal(again, loss)
+    assert torch.equal(torch.autograd.grad(again, y)[0], grad)
 
 
 def test_gs_loss_kernels_repeat_and_take_a_cotangent(card):

@@ -133,8 +133,13 @@ def _images(seed, shape, flat=False):
     return a, b
 
 
+# the kernels walk 32-column strips down in bands of 8 rows: (37, 70) leaves
+# a partial strip and a partial band, B = 2 at (45, 75) too; the flat cases
+# put the backward's partials (stored as float32) through the cancelling
+# region
 LOSS_SHAPES = [((40, 52, 3), False), ((11, 11, 3), False), ((11, 64, 3), False),
-               ((64, 11, 3), False), ((2, 24, 24, 3), False), ((40, 52, 3), True)]
+               ((64, 11, 3), False), ((2, 24, 24, 3), False), ((40, 52, 3), True),
+               ((37, 70, 3), False), ((2, 45, 75, 3), False), ((2, 45, 75, 3), True)]
 
 
 @pytest.mark.parametrize("shape,flat", LOSS_SHAPES)
@@ -190,13 +195,20 @@ def test_gs_loss_checks_its_inputs(case):
 
 
 def test_loss_args_pack_as_the_kernel_reads_them():
-    assert ctypes.sizeof(kl.LossArgs) == 8 * 11 + 8 * 5 + 4 * 4 + 8 * 4 * 2
+    assert ctypes.sizeof(kl.LossArgs) == 8 * 11 + 8 * 5 + 4 * 4 + 8 * 4 * 2 + 4 * 8
     img = torch.zeros((2, 20, 30, 4))
     pred, target = img[..., :3], torch.zeros((2, 20, 30, 3))
     a = kl.loss_args(pred, target, 0.2)
     assert (a.b, a.h, a.w, a.c) == (2, 20, 30, 3)
     assert tuple(a.ps) == (20 * 30 * 4, 30 * 4, 4, 1)
     assert tuple(a.ts) == (20 * 30 * 3, 30 * 3, 3, 1)
+    # pred's pixels come 16 bytes whole; target's rows (30 x 3 floats, not
+    # a multiple of 4) 4 bytes an element; the plan's fields wait for
+    # gs_loss_plan on the card
+    assert (a.pvec, a.tvec) == (kl.PIXELS, 0)
+    wide = kl.loss_args(torch.zeros((20, 32, 4))[..., :3], torch.zeros((20, 32, 3)), 0.2)
+    assert (wide.pvec, wide.tvec) == (kl.PIXELS, kl.ROWS)
+    assert (a.cg, a.groups, a.fseg, a.fsegs, a.bseg, a.bsegs) == (0,) * 6
     m = 2 * 10 * 20 * 3
     assert a.coef_ssim == -0.2 / (2 * m) and a.coef_l1 == 0.8 / (2 * 20 * 30 * 3)
     assert a.lam == 0.2 and a.c1 == kl.C1 and a.c2 == kl.C2
@@ -209,4 +221,73 @@ def test_loss_args_pack_as_the_kernel_reads_them():
     win = losses._gaussian_window().numpy()
     assert np.array_equal(np.outer(g, g).astype(np.float32), win)
     one = kl.loss_args(pred[0], target[0], 0.5)
-    assert (one.b, one.h, one.w, one.c) == (1, 20, 30, 3)
+    assert (one.b, one.h, one.w, one.c) == (1, 20, 30, 3) and one.pvec == 1
+
+
+@pytest.mark.parametrize("shape", [(11, 11, 3), (2, 24, 24, 3), (33, 47, 1), (512, 1024, 3)])
+def test_the_forward_workspace_aligns_the_slots(shape):
+    """The partials, (3, B, H - 10, W - 10, 4) a group of channels, then the
+    blocks' slots 16 bytes aligned: a (11, 11, 3) image's twelve float32
+    partials end on 16 bytes, a one-channel image's too."""
+    *b, h, w, c = shape
+    n = 3 * (b[0] if b else 1) * (h - kl.HALO) * (w - kl.HALO) * 4
+    for dtype in (torch.float32, torch.float64):
+        start, total = kl.workspace(n, dtype, 7)
+        assert start >= n and (start * dtype.itemsize) % 16 == 0
+        assert (start - n) * dtype.itemsize < 16
+        assert (total - start) * dtype.itemsize == 7 * 16
+    # an odd count of float32 partials: the slots still start on 16 bytes
+    assert kl.workspace(9, torch.float32, 1) == (12, 16)
+
+
+@pytest.mark.parametrize("shape,view,rows", [
+    ((20, 32, 3), "contiguous", True), ((2, 20, 32, 3), "contiguous", True),
+    ((20, 32, 1), "contiguous", True), ((20, 30, 2), "contiguous", True),
+    ((20, 30, 3), "contiguous", False), ((20, 32, 3), "frame view", False),
+    ((20, 32, 3), "unaligned offset", False), ((20, 32, 5), "contiguous", False)])
+def test_the_wrapper_stages_target_rows_where_they_are_contiguous(shape, view, rows):
+    """Target's rows 16 bytes a copy: channels 1 float apart, pixels C, a
+    row's W C floats ending on 16 bytes, 16-byte aligned; else 4 bytes an
+    element."""
+    t = torch.zeros(shape)
+    if view == "frame view":
+        t = torch.zeros(shape[:-1] + (4,))[..., :3]
+    elif view == "unaligned offset":      # contiguous, 4 bytes past 16
+        t = torch.zeros(t.numel() + 1)[1:].view(shape)
+    assert kl.stages_rows(t) is rows
+    assert kl.loss_args(torch.zeros(shape), t, 0.2).tvec == (kl.ROWS if rows else 0)
+
+
+def _staging_case(case):
+    """(an image, whether the kernels stage its pixels 16 bytes whole)."""
+    frame = torch.zeros((2, 20, 30, 4))
+    flat = torch.zeros(20 * 30 * 4)
+    return {"frame view": (frame[0, ..., :3], True),
+            "batched frame view": (frame[..., :3], True),
+            "one channel of the frame": (frame[..., :1], True),
+            "contiguous rgba": (frame.clone(), True),
+            "contiguous rgb": (frame[..., :3].contiguous(), False),
+            "unaligned offset": (frame[..., 1:4], False),
+            "unaligned rows": (flat.as_strided((19, 30, 3), (122, 4, 1)), False),
+            "channels apart": (torch.zeros((2, 20, 3, 30)).permute(0, 1, 3, 2), False),
+            # the last pixel's fourth float lies past the storage's end
+            "short storage": (torch.zeros(20 * 30 * 4 - 1).as_strided((20, 30, 3), (120, 4, 1)),
+                              False),
+            "five channels": (torch.zeros((20, 30, 8))[..., :5], False),
+            }[case]
+
+
+@pytest.mark.parametrize("case", ["frame view", "batched frame view", "one channel of the frame",
+                                  "contiguous rgba", "contiguous rgb", "unaligned offset",
+                                  "unaligned rows", "channels apart", "short storage",
+                                  "five channels"])
+def test_the_wrapper_chooses_the_staging_path(case):
+    t, whole = _staging_case(case)
+    assert kl.stages_whole_pixels(t) is whole
+    other = torch.zeros(t.shape).contiguous()
+    a = kl.loss_args(t, other, 0.2)
+    assert a.pvec == (kl.PIXELS if whole else 0)
+    assert a.tvec == (kl.ROWS if kl.stages_rows(other) else 0)
+    # the strides the kernel reads: batch, row, column, channel
+    t4 = t if t.dim() == 4 else t.unsqueeze(0)
+    assert tuple(a.ps) == t4.stride()
