@@ -65,8 +65,11 @@ csrc`` (nvcc, at first use), then:
    fed its own forward's output; the train step's kernels: Adam
    (``csrc/adam.cu``, one launch for every key) on 3,616,103 splats with
    SH 0 and SH 3 keys, bit-equal to the written-out Adam and its addition,
-   beside ``torch.optim.Adam(fused=True)``, after probes of the rounding it
-   copies from torch on the card; the loss's forward and backward
+   beside ``torch.optim.Adam(fused=True)`` in turn, its wrapper's host time
+   split into its parts (``scripts/torch_adam_probe.py``), its device time
+   beside the bound, and the kept form, the two forms not taken and the
+   earlier kernel launched alone in turn, each bit-equal, after probes of the
+   rounding it copies from torch on the card; the loss's forward and backward
    (``csrc/ssim_loss.cu``) on the training path's image (the perturbed
    start's frame, read in place, against the clean frame) within
    ``LOSS_REL_TOL`` / ``LOSS_GRAD_TOL`` of their separable restatement,
@@ -1831,13 +1834,22 @@ def adam_case(n, sh, device):
 
 def check_adam(device, results):
     """Kernel A (row 14) on the flagship's 3,616,103 splats, SH 0 and SH 3
-    keys: bit-equal to the written-out Adam and its addition, timed beside
-    it and beside torch.optim.Adam(fused=True)'s step on the same tensors."""
+    keys, under ``torch.no_grad()`` as the train step calls it: bit-equal to
+    the written-out Adam and its addition; the wrapper's host time split
+    into its parts (``scripts/torch_adam_probe.py`` ``parts_tree``: the same
+    statements, stamped); its time between events, on the device alone
+    beside the bound, and beside ``torch.optim.Adam(fused=True)``'s step on
+    the same tensors; and the kept form, the two forms not taken and the
+    earlier kernel launched alone and timed in turn (the probe's
+    ``TURN_FORMS``)."""
     import torch
 
     from openglgaussiansplattingrenderer_tpu_torch.ops.kernels import adam as kadam
 
     probe = adam_rounding_probe(device)
+    adam_probe = load_script("torch_adam_probe")
+    forms = adam_probe.build_forms(adam_probe.TURN_FORMS)
+    assert set(forms) == set(adam_probe.TURN_FORMS), f"adam forms not built: {list(forms)}"
     rows = {}
     for name, sh in (("sh0", False), ("sh3", True)):
         raw, grads, state, lrs = adam_case(FLAG_SPLATS, sh, device)
@@ -1864,24 +1876,49 @@ def check_adam(device, results):
         lib = torch.optim.Adam([{"params": [p], "lr": lrs[k]} for k, p in zip(lrs, params)],
                                betas=(kadam.ADAM_B1, kadam.ADAM_B2), eps=kadam.ADAM_EPS,
                                fused=True)
-        rows[name] = dict(elements=elems, max_abs_err=0.0, ms=cuda_ms(kernel),
-                          device_us=device_us(kernel, calls=20),
-                          plain_ms=cuda_ms(plain), plain_device_us=device_us(plain, calls=5),
-                          library_ms=cuda_ms(lib.step),
-                          library_device_us=device_us(lib.step, calls=20),
-                          library_host_us=host_us(lib.step, reps=50),
-                          host_us=host_us(kernel, reps=50),
-                          **bound(28 * elems, ADAM_FLOP * elems))
-        del lib, params, raw, grads, state
+        with torch.no_grad():
+            parts = adam_probe.host_parts(adam_probe.parts_tree, kadam.adam_update, grads,
+                                          state, lrs, raw, 200)
+            r = dict(elements=elems, max_abs_err=0.0, ms=cuda_ms(kernel),
+                     library_ms=cuda_ms(lib.step), ms_again=cuda_ms(kernel),
+                     library_ms_again=cuda_ms(lib.step),
+                     device_us=device_us(kernel, calls=20),
+                     plain_ms=cuda_ms(plain), plain_device_us=device_us(plain, calls=5),
+                     library_device_us=device_us(lib.step, calls=20),
+                     library_host_us=host_us(lib.step, reps=50),
+                     host_us=host_us(kernel, reps=50), host_parts_us=parts,
+                     **bound(28 * elems, ADAM_FLOP * elems))
+            del lib, params
+            torch.cuda.empty_cache()
+            r["forms"] = adam_probe.time_forms(forms, raw, grads, state, lrs)
+        for k, v in r["forms"].items():
+            assert v["equal"], f"adam {name}: the form {k!r} differs from the plain step"
+        del raw, grads, state
         torch.cuda.empty_cache()
-        r = rows[name]
+        rows[name] = r
+        share = (f"{r['bound_ms'] * 1e3 / r['device_us']:.1%} of the bound"
+                 if r["device_us"] else "not measured")
         log(f"[2] adam {name}: {FLAG_SPLATS} splats, {len(lrs)} keys, {elems} floats: "
-            f"bit-equal to the plain step (p', m', v'); kernel {r['ms']:.4f} ms, on the "
-            f"device alone {r['device_us']} us, the wrapper's host {r['host_us']:.1f} us; "
-            f"plain {r['plain_ms']:.4f} ms (device {r['plain_device_us']} us); "
-            f"torch.optim.Adam(fused=True) {r['library_ms']:.4f} ms (device "
-            f"{r['library_device_us']} us, host {r['library_host_us']:.1f} us); bound "
-            f"{r['bound_ms']:.4f} ms ({r['bound_by']})")
+            f"bit-equal to the plain step (p', m', v'); kernel {r['ms']:.4f}, "
+            f"{r['ms_again']:.4f} ms beside torch.optim.Adam(fused=True) "
+            f"{r['library_ms']:.4f}, {r['library_ms_again']:.4f} ms (in turn); on the "
+            f"device alone {r['device_us']} us ({share}) against the fused call's "
+            f"{r['library_device_us']} us; bound {r['bound_ms']:.4f} ms ({r['bound_by']}); "
+            f"plain {r['plain_ms']:.4f} ms (device {r['plain_device_us']} us)")
+        log(f"[2] adam {name}: the wrapper's host {r['host_us']:.1f} us (the fused call's "
+            f"{r['library_host_us']:.1f}); split, in turn with whole calls (median of 200): "
+            f"whole {parts['whole wrapper']:.1f} us, before its launch "
+            f"{parts['before the launch']:.1f} us; " + ", ".join(
+                f"{k} {v:.1f}" for k, v in parts.items()
+                if k not in ("sum of parts", "before the launch", "whole wrapper")))
+        def us(xs):
+            return " / ".join(f"{x:.1f}" if x else "not measured" for x in xs)
+
+        log(f"[2] adam {name}: the forms alone, in turn (device us warm; cold, a 1 GiB fill "
+            f"between launches; events ms): " + "; ".join(
+                f"{k}: {us(v['device_us'])}; {us(v['cold_device_us'])}; "
+                f"{' / '.join(f'{x:.4f}' for x in v['events_ms'])}"
+                for k, v in r["forms"].items()))
     log(f"[2] adam rounding probes on the card: x / c equals x * f32(1 / c in double) "
         f"at {probe['divisors']} bias corrections (the float32 reciprocal differs at "
         f"{probe['f32_reciprocal_misses']}); products with b1, 1 - b1, b2, 1 - b2 round "

@@ -61,7 +61,8 @@ SIGNATURES = {
     "gs_splat_table": [_P] * 23 + [_L, _P],
     "gs_splat_table_bwd": [_P] * 19 + [_L, _P],
     "gs_adam_args_size": [],
-    "gs_adam_block_elems": [],
+    "gs_adam_chunk_elems": [],
+    "gs_adam_threads": [],
     "gs_adam_step": [_P, _P],
     "gs_loss_args_size": [],
     "gs_loss_partial_bytes": [],
@@ -221,14 +222,23 @@ def expect(name: str, t, dtype, shape) -> None:
         raise ValueError(f"{name}: input must be contiguous")
 
 
-def stream_ptr() -> int:
-    """The current device's current stream as an integer for ctypes. The raw
-    accessor costs a fraction of a microsecond where building a
-    ``torch.cuda.Stream`` object costs several, more than a small kernel's
-    launch; the public call stands in where a PyTorch lacks it."""
+@functools.lru_cache(maxsize=1)
+def _current_stream():
+    """A function returning the current device's current stream as an
+    integer: the raw accessor where this PyTorch has it (a fraction of a
+    microsecond, where building a ``torch.cuda.Stream`` object costs
+    several, more than a small kernel's launch), else the public call."""
     import torch
 
     raw = getattr(torch._C, "_cuda_getCurrentRawStream", None)
-    if raw is not None:
-        return raw(torch.cuda.current_device())
-    return torch.cuda.current_stream().cuda_stream
+    if raw is None:
+        return lambda: torch.cuda.current_stream().cuda_stream
+    # the device torch.cuda.current_device() returns, without its
+    # initialisation check: a CUDA tensor exists by the first launch
+    device = torch._C._cuda_getDevice
+    return lambda: raw(device())
+
+
+def stream_ptr() -> int:
+    """The current device's current stream as an integer for ctypes."""
+    return _current_stream()()

@@ -27,7 +27,8 @@ scenes (the uniform and the clustered flagship, 3,616,103 splats at
   (``train_step_split``: render forward, loss forward, loss backward, render
   backward, Adam, the rest), the median of ``--reps`` steps each; and
   the loss's two kernels alone on the step's images (``loss_kernels``:
-  device ms, events ms, host us).
+  device ms, events ms, host us), and Adam's wrapper alone on the step's
+  state (``adam``: the same three).
 
 Prints the card and its power limit, a JSON line a scene, then one JSON
 object last. Needs a card: without CUDA it exits with "no CUDA device".
@@ -154,6 +155,28 @@ def loss_kernels(render_arrays, render_args, target, lam, reps: int) -> dict:
              "backward": lambda: kl.gs_loss_bwd(pred, target, parts, one, lam)}
     return {name: {"device_ms": device_ms(fn), "events_ms": events_ms(fn, reps),
                    "host_us": host_ms(fn, reps) * 1e3} for name, fn in calls.items()}
+
+
+def adam_kernel(step, state, reps: int) -> dict:
+    """Adam's wrapper through the train step's optimizer (``Optimizer.update``
+    of the package timed) on the step's raw tensors and moments, gradients
+    drawn from a seed, under ``torch.no_grad()`` as the step calls it:
+    device ms, events ms and host us (the call's return, the device idle
+    before it), each as ``device_ms``, ``events_ms`` and ``host_ms`` take
+    them."""
+    import torch
+
+    dev = next(iter(state.raw.values())).device
+    gen = torch.Generator(device=dev).manual_seed(0)
+    grads = {k: torch.randn(v.shape, generator=gen, device=dev) * 1e-3
+             for k, v in state.raw.items()}
+
+    def call():
+        return step.optimizer.update(grads, state.opt_state, state.raw)
+
+    with torch.no_grad():
+        return {"device_ms": device_ms(call), "events_ms": events_ms(call, reps),
+                "host_us": host_ms(call, reps) * 1e3}
 
 
 SPLIT = ("render_fwd", "loss_fwd", "loss_bwd", "render_bwd", "adam", "rest")
@@ -320,6 +343,7 @@ def main(argv=None) -> dict:
             row["train_step_device_ms"] = device_ms(lambda: step(state, *one))
             row["train_step_split"] = train_step_split(step, state, one, args.reps)
             row["step_top"] = device_top(lambda: step(state, *one))
+            row["adam"] = adam_kernel(step, state, args.reps)
             row["loss_kernels"] = loss_kernels(
                 render_arrays, (dict(params, colors=torch.as_tensor(noisy, device=dev)), *cam,
                                 cfg), target, tc.lambda_dssim, args.reps)

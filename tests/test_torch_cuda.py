@@ -1081,15 +1081,16 @@ ADAM_KEYS = {"means": 3, "log_scales": 3, "quats": 4, "logit_opacities": 1, "col
 def _adam_case(n, seed, device, sh=False, offset=0):
     """raw, grads and a state three steps in, on ``device``; ``offset``
     puts every tensor that many floats past its allocation's start (off the
-    16-byte grid for 1)."""
+    16-byte grid for 1), or, given a key's name, that key's raw tensor alone
+    one float past it."""
     g = torch.Generator().manual_seed(seed)
     widths = dict(ADAM_KEYS, **({"sh_rest": 45} if sh else {}))
 
-    def t(w, scale=1.0):
-        x = (torch.randn(n * w + offset, generator=g) * scale).to(device)
-        return x[offset:].view((n, w) if w > 1 else (n,))
+    def t(w, scale=1.0, off=offset if isinstance(offset, int) else 0):
+        x = (torch.randn(n * w + off, generator=g) * scale).to(device)
+        return x[off:].view((n, w) if w > 1 else (n,))
 
-    raw = {k: t(w) for k, w in widths.items()}
+    raw = {k: t(w, off=1) if k == offset else t(w) for k, w in widths.items()}
     grads = {k: t(w, 1e-3) for k, w in widths.items()}
     grads["colors"][: n // 3] = 0.0                          # no gradient: a zero step
     state = {"count": 3, "mu": {k: t(w, 1e-3) for k, w in widths.items()},
@@ -1097,15 +1098,32 @@ def _adam_case(n, seed, device, sh=False, offset=0):
     return raw, grads, state
 
 
+def _kept(raw, state):
+    return ({k: v.clone() for k, v in raw.items()},
+            {m: {k: v.clone() for k, v in state[m].items()} for m in ("mu", "nu")})
+
+
+def _unwritten(raw, state, kept):
+    for k in raw:
+        assert torch.equal(raw[k], kept[0][k]), "raw was written"
+        for m in ("mu", "nu"):
+            assert torch.equal(state[m][k], kept[1][m][k]), "the old state was written"
+
+
+# n = 7,000 and 100,003: every key ends inside a chunk (n w is no multiple
+# of 4,096); offset 1 or 2: every key off the 16-byte grid, element by
+# element; "quats": that key alone off the grid, the others in chunks
 @pytest.mark.parametrize("n,sh,offset", [(1, False, 0), (5, False, 0), (1024, False, 0),
                                          (4097, True, 0), (100_003, True, 0),
-                                         (100_003, False, 1), (3, True, 1), (5_000, True, 2)])
+                                         (100_003, False, 1), (3, True, 1), (5_000, True, 2),
+                                         (7_000, True, 0), (7_000, True, "quats"),
+                                         (100_003, False, "logit_opacities")])
 def test_adam_kernel_bit_equal_to_plain(card, n, sh, offset):
     from openglgaussiansplattingrenderer_tpu_torch.ops.kernels import adam as kadam
 
-    raw, grads, state = _adam_case(n, n + offset, card, sh, offset)
-    kept = {k: v.clone() for k, v in raw.items()}, {
-        m: {k: v.clone() for k, v in state[m].items()} for m in ("mu", "nu")}
+    seed = n + (offset if isinstance(offset, int) else len(offset))
+    raw, grads, state = _adam_case(n, seed, card, sh, offset)
+    kept = _kept(raw, state)
     tc = trainer.TrainConfig(lr_means_final=1.6e-6, lr_means_decay_steps=10)
     opt = trainer.make_optimizer(tc, tuple(raw))
     before = kadam.adam_update.launches
@@ -1117,37 +1135,76 @@ def test_adam_kernel_bit_equal_to_plain(card, n, sh, offset):
     torch.cuda.synchronize()
     assert kadam.adam_update.launches == before + 2
     assert got_s["count"] == got_s2["count"] == 4
-    for k in raw:
+    plan = kadam.plan(grads, state, lrs, raw)[0]
+    for i, k in enumerate(raw):
+        off_grid = offset == k or (isinstance(offset, int) and offset % 4 != 0)
+        assert plan.args.vec[i] == (not off_grid), k
         assert torch.equal(new[k], raw[k] + want_u[k]), k
         assert torch.equal(got_u[k], want_u[k]), k
-        assert torch.equal(raw[k], kept[0][k]), "raw was written"
         for m in ("mu", "nu"):
             assert torch.equal(got_s[m][k], want_s[m][k]), (m, k)
-            assert torch.equal(state[m][k], kept[1][m][k]), "the old state was written"
+    _unwritten(raw, state, kept)
 
 
 def test_adam_kernel_ten_steps_and_a_reset(card):
     """Ten steps on the card against the plain version, with an opacity
-    moment reset between (a new state dict holding fresh zeros)."""
+    moment reset between (a new state dict holding fresh zeros); fresh
+    gradients each step on one cached plan; a densify step on the outputs
+    (the raw tensors as autograd leaves first, then the rows rewritten) and
+    a capacity change, which takes a new plan; the inputs of every step
+    unwritten."""
     from openglgaussiansplattingrenderer_tpu_torch.ops.kernels import adam as kadam
     from openglgaussiansplattingrenderer_tpu_torch.train import densify
 
-    raw, grads, _ = _adam_case(9_999, 5, card, sh=True)
+    n = 9_999
+    raw, grads, _ = _adam_case(n, 5, card, sh=True)
     opt = trainer.make_optimizer(trainer.TrainConfig(lr_means_final=1e-6), tuple(raw))
     state = plain = opt.init(raw)
     p, q = raw, raw
+    plans = []
     for i in range(10):
         g = {k: v * (1.0 + 0.1 * i) for k, v in grads.items()}
-        p, state = opt.update(g, state, p)
         lrs = {k: opt.learning_rate(k, plain["count"]) for k in raw}
+        plans.append(kadam.plan(g, state, lrs, p)[0])
+        kept = _kept(p, state)
+        p2, state2 = opt.update(g, state, p)
+        _unwritten(p, state, kept)
+        p, state = p2, state2
         u, plain = kadam.adam_update_plain(g, plain, lrs)
         q = {k: q[k] + u[k] for k in raw}
         if i == 4:
-            state = densify.reset_opacity_moments(state, 9_999)
-            plain = densify.reset_opacity_moments(plain, 9_999)
+            state = densify.reset_opacity_moments(state, n)
+            plain = densify.reset_opacity_moments(plain, n)
+        if i == 6:
+            # the outputs as autograd leaves, then a densify step at a
+            # larger capacity: pad (cat), prune, clone and split (gathers
+            # and index writes), moments of changed rows zeroed
+            leaves = {k: v.detach().requires_grad_(True) for k, v in p.items()}
+            sum((x * x).sum() for x in leaves.values()).backward()
+            for k in raw:
+                assert torch.equal(leaves[k].grad, 2 * p[k]), k
+            cap = n + 1_001
+            dc = densify.DensifyConfig(capacity=cap, grad_threshold=1e-4)
+            accum = torch.linspace(0, 1e-3, cap, device=card)
+            seen = torch.ones(cap, device=card)
+            normals = densify.split_normals(cap, torch.Generator(card).manual_seed(1), card)
+            out = []
+            for r, st in ((p, state), (q, plain)):
+                padded, alive = densify.pad_to_capacity(r, cap)
+                st = {"count": st["count"], **{m: {k: torch.cat(
+                    [v, v.new_zeros((cap - n,) + v.shape[1:])]) for k, v in st[m].items()}
+                    for m in ("mu", "nu")}}
+                r2, _, changed, _ = densify.densify_and_prune(padded, alive, accum, seen, dc,
+                                                              normals=normals)
+                out.append((r2, densify.reset_rows(st, changed)))
+            (p, state), (q, plain) = out
+            grads = {k: torch.cat([v, v[: cap - n]]) for k, v in grads.items()}
+    # fresh gradients each step: one plan until the capacity changed
+    assert plans[1] is plans[2] is plans[6] and plans[7] is plans[9] is not plans[6]
     for k in raw:
         assert torch.equal(p[k], q[k]), k
         assert torch.equal(state["nu"][k], plain["nu"][k]), k
+        assert torch.equal(state["mu"][k], plain["mu"][k]), k
 
 
 LOSS_CARD_SHAPES = [(40, 52, 3), (11, 11, 3), (11, 64, 3), (64, 11, 3), (2, 24, 24, 3),

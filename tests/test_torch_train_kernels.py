@@ -13,6 +13,8 @@ to these plain versions in ``tests/test_torch_cuda.py`` and ``chip_smoke.py``.
 """
 
 import ctypes
+import importlib.util
+from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -98,30 +100,191 @@ def test_optimizer_update_adds_the_step_to_raw():
 def test_adam_args_pack_as_the_kernel_reads_them():
     ptr = ctypes.sizeof(ctypes.c_void_p)
     m = kadam.MAX_KEYS
-    assert ctypes.sizeof(kadam.AdamArgs) == 7 * m * ptr + 8 * m + 8 * (m + 1) + 4 * m + 4 * m + 32
+    # inputs, out, neg_lr, inv_c1 + inv_c2, n, out_at, role_stride,
+    # first_chunk, first_elem, vec, five constants, keys + blocks, padding
+    assert ctypes.sizeof(kadam.AdamArgs) == (4 * m * ptr + ptr + 4 * m + 8 + 8 * m + 8 * m + 8
+                                             + 2 * 8 * (m + 1) + 4 * m + 20 + 8 + 4)
     raw, (g,) = _adam_inputs(4, 1)
     t = {k: torch.from_numpy(v) for k, v in raw.items()}
     keys = tuple(SHAPES)
     p = {k: v.clone() for k, v in t.items()}
-    tensors = {k: (p[k], t[k], t[k], t[k], t[k], t[k], t[k]) for k in keys}
+    ins = [x for k in keys for x in (p[k], t[k], t[k], t[k])]
+    ptrs = [x.data_ptr() for x in ins]
     lrs = {k: 1e-3 * (i + 1) / 3.0 for i, k in enumerate(keys)}
-    a = kadam.adam_args(tensors, lrs, count=6)
+    a = kadam.plan_args([t[k].numel() for k in keys], [True] * len(keys))
+    out = torch.empty(3 * a.role_stride)
+    assert kadam.step_args(a, ptrs, out.data_ptr(), lrs, count=6) is a
     c1, c2 = kadam.bias_corrections(6)
     assert a.keys == len(keys)
     f32 = np.float32
     assert a.inv_c1 == f32(1.0 / c1) and a.inv_c2 == f32(1.0 / c2)
     assert a.one_minus_b1 == f32(1.0 - kadam.ADAM_B1) and a.b2 == f32(kadam.ADAM_B2)
     assert a.eps == f32(kadam.ADAM_EPS)
+    assert a.out == out.data_ptr()
     for i, k in enumerate(keys):
         assert a.n[i] == t[k].numel()
         assert a.neg_lr[i] == f32(-lrs[k])
-        assert a.g[i] == t[k].data_ptr()
-        assert a.p[i] == p[k].data_ptr() != a.g[i]
+        assert a.inputs[4 * i + 1] == t[k].data_ptr()
+        assert a.inputs[4 * i] == p[k].data_ptr() != a.inputs[4 * i + 1]
+        # each key's outputs 16-byte aligned, one role after another
+        assert a.out_at[i] % 4 == 0 and a.out_at[i] + a.n[i] <= a.role_stride
     # the bias corrections in float32: 1 - 0.999^7
     assert c2 == float(f32(1.0) - f32(0.999) ** f32(7))
     with pytest.raises(ValueError, match="keys"):
-        kadam.adam_args({str(i): tensors["means"] for i in range(m + 1)},
-                        {str(i): 1e-3 for i in range(m + 1)}, 0)
+        kadam.plan_args([4] * (m + 1), [True] * (m + 1))
+
+
+# key lengths and whether each key's inputs start on the 16-byte grid: one
+# element, three, a chunk and one, a key off the grid among aligned ones,
+# keys that end inside a chunk, an empty key, the most keys
+PLAN_CASES = [((1,), (True,)), ((3, 4097), (True, True)),
+              ((4097, 5_000, 1), (True, False, True)),
+              ((4096, 4097, 4100, 12_287), (True,) * 4), ((0, 7), (True, False)),
+              ((10_001,) * 8, (True, False) * 4), ((300_000, 3), (True, True))]
+
+
+@pytest.mark.parametrize("lengths,aligned", PLAN_CASES)
+def test_adam_plan_covers_every_element_once(lengths, aligned):
+    a = kadam.plan_args(lengths, aligned)
+    work = kadam.plan_work(a)
+    seen = [np.zeros(n, np.int64) for n in lengths]
+    for k, lo, hi, path in work:
+        assert 0 <= lo < hi <= lengths[k], (k, lo, hi)
+        seen[k][lo:hi] += 1
+        if path == "chunk":
+            # a chunk of one key, whole float4s, at most CHUNK elements
+            assert aligned[k] and lo % kadam.CHUNK == 0 and (hi - lo) % 4 == 0
+            assert hi - lo <= kadam.CHUNK
+        else:
+            # the element path: a key off the grid whole, else its last n % 4
+            assert (lo, hi) == ((lengths[k] & ~3, lengths[k]) if aligned[k] else (0, lengths[k]))
+    for k, s in enumerate(seen):
+        assert (s == 1).all(), k
+    chunks = sum(1 for w in work if w[3] == "chunk")
+    elements = sum(w[2] - w[1] for w in work if w[3] == "element")
+    assert (a.first_chunk[kadam.MAX_KEYS], a.first_elem[kadam.MAX_KEYS]) == (chunks, elements)
+    assert a.blocks == chunks + -(-elements // kadam.THREADS)
+    assert a.role_stride == sum(-(-n // 4) * 4 for n in lengths)
+
+
+@pytest.fixture
+def fake_card(monkeypatch):
+    """CPU tensors planned as if they lay on a card, with a fresh plan
+    cache."""
+    monkeypatch.setattr(kadam, "_PLANS", {})
+    monkeypatch.setattr(kadam, "_DEVICE", lambda t: 0)
+
+
+def _adam_tensors(n, seed, sh=True, off=()):
+    """raw, grads and a state of ``n`` splats from numpy; the keys of
+    ``off`` have their raw tensor one float past an allocation's start."""
+    rng = np.random.default_rng(seed)
+    shapes = {k: (n,) + s[1:] for k, s in SHAPES.items() if sh or k != "sh_rest"}
+
+    def t(s, scale, shift=0):
+        x = torch.from_numpy((rng.normal(0, 1, int(np.prod(s)) + shift) * scale)
+                             .astype(np.float32))
+        return x[shift:].view(s)
+
+    raw = {k: t(s, 1.0, int(k in off)) for k, s in shapes.items()}
+    grads = {k: t(s, 1e-3) for k, s in shapes.items()}
+    state = {"count": 2, "mu": {k: t(s, 1e-3) for k, s in shapes.items()},
+             "nu": {k: t(s, 1e-4).abs() for k, s in shapes.items()}}
+    return raw, grads, state, {k: 1e-3 * (i + 1) for i, k in enumerate(shapes)}
+
+
+def test_adam_plan_is_cached_on_shapes(fake_card):
+    raw, grads, state, lrs = _adam_tensors(37, 1)
+    plan, ins, ptrs = kadam.plan(grads, state, lrs, raw)
+    assert isinstance(plan, kadam.Plan) and ptrs == [x.data_ptr() for x in ins]
+    assert [plan.args.vec[i] for i in range(len(lrs))] == [1] * len(lrs)
+    # fresh tensors of the same shapes: the same plan
+    raw2, grads2, state2, _ = _adam_tensors(37, 2)
+    assert kadam.plan(grads2, state2, lrs, raw2)[0] is plan
+    # another capacity, another key set, a key off the grid: another plan each
+    other = [kadam.plan(g, s, l, r)[0] for r, g, s, l in (
+        _adam_tensors(38, 3), _adam_tensors(37, 4, sh=False), _adam_tensors(37, 5, off=("quats",)))]
+    assert len({id(plan), *map(id, other)}) == 4
+    assert [other[2].args.vec[i] for i in range(len(lrs))] == [1, 1, 0, 1, 1, 1]
+    # the plan of the misaligned view covers each key once, quats element by element
+    work = kadam.plan_work(other[2].args)
+    assert {w[0] for w in work if w[3] == "element" and w[1] == 0} == {2}
+    for k in range(len(lrs)):
+        runs = sorted((lo, hi) for key, lo, hi, _ in work if key == k)
+        assert runs[0][0] == 0 and runs[-1][1] == other[2].args.n[k]
+        assert all(a[1] == b[0] for a, b in zip(runs, runs[1:]))
+    assert other[0].args.n[0] == 38 * 3 and other[1].args.keys == len(lrs) - 1
+    assert kadam.plan(grads, state, lrs, raw)[0] is plan
+    # CPU tensors: the plain version's sentinel; views off the dense layout: none
+    with pytest.MonkeyPatch.context() as m:
+        m.setattr(kadam, "_DEVICE", torch.Tensor.get_device)
+        assert kadam.plan(grads, state, lrs, raw)[0] is kadam._CPU
+    strided = dict(raw, means=raw["means"].t().contiguous().t())
+    assert kadam.plan(grads, state, lrs, strided)[0] is None
+
+
+class _EmulatedKernel:
+    """``gs_adam_step`` as ``csrc/adam.cu`` reads its struct, in numpy on
+    host memory: every piece of ``plan_work`` read and written through the
+    struct's pointers and offsets, a chunk only from 16-byte aligned
+    inputs."""
+    launches = 0
+
+    def gs_adam_step(self, addr, stream):
+        a = kadam.AdamArgs.from_address(addr)
+        f32 = np.float32
+
+        def array(p, n):
+            return np.ctypeslib.as_array((ctypes.c_float * max(n, 1)).from_address(p))[:n]
+
+        for k, lo, hi, path in kadam.plan_work(a):
+            n = a.n[k]
+            p, g, m, v = (array(a.inputs[4 * k + r], n)[lo:hi] for r in range(4))
+            if path == "chunk":
+                assert all(a.inputs[4 * k + r] % 16 == 0 for r in range(4))
+            po, mo, vo = (array(a.out + 4 * (a.out_at[k] + r * a.role_stride), n)[lo:hi]
+                          for r in range(3))
+            mo[:] = f32(a.b1) * m + f32(a.one_minus_b1) * g
+            vo[:] = f32(a.b2) * v + f32(a.one_minus_b2) * (g * g)
+            po[:] = p + f32(a.neg_lr[k]) * ((mo * f32(a.inv_c1))
+                                            / (np.sqrt(vo * f32(a.inv_c2)) + f32(a.eps)))
+        self.launches += 1
+        return 0
+
+
+@pytest.mark.parametrize("n,off", [(1, ()), (5, ()), (1_367, ()), (1_367, ("quats",)),
+                                   (701, tuple(SHAPES))])
+def test_adam_update_fills_every_output_as_the_kernel_reads_them(fake_card, monkeypatch, n, off):
+    """The CUDA branch of ``adam_update`` on host memory, the kernel
+    emulated: the pointers, rates, output offsets and views that reach the
+    C entry point give the plain step (to float32 rounding: numpy and
+    torch's CPU kernels round the division otherwise), in new tensors of
+    the inputs' shapes, the inputs unwritten."""
+    kernel = _EmulatedKernel()
+    monkeypatch.setattr(kadam, "_library", lambda: kernel)
+    monkeypatch.setattr(kadam.build, "stream_ptr", lambda: 0)
+    raw, grads, state, lrs = _adam_tensors(n, n, off=off)
+    kept = {k: v.clone() for k, v in raw.items()}
+    with torch.no_grad():
+        new, st = kadam.adam_update(grads, state, lrs, raw)
+    upd, want = kadam.adam_update_plain(grads, state, lrs)
+    assert kernel.launches == 1 and st["count"] == 3
+    for k in lrs:
+        assert new[k].shape == raw[k].shape and new[k].is_contiguous()
+        np.testing.assert_allclose(new[k].numpy(), (raw[k] + upd[k]).numpy(),
+                                   rtol=1e-6, atol=1e-7)
+        for m in ("mu", "nu"):
+            np.testing.assert_allclose(st[m][k].numpy(), want[m][k].numpy(), rtol=1e-6)
+        assert torch.equal(raw[k], kept[k])
+    # one allocation, 16-byte aligned parts, every output its own leaf
+    assert len({v.untyped_storage().data_ptr() for d in (new, st["mu"], st["nu"])
+                for v in d.values()}) == 1
+    assert all(v.data_ptr() % 16 == 0 for v in new.values())
+    leaf = new["means"].requires_grad_(True)
+    (leaf * leaf).sum().backward()
+    assert torch.equal(leaf.grad, 2 * new["means"].detach())
+    with pytest.raises(NotImplementedError, match="no backward"):
+        kadam.adam_update(grads, state, lrs, new)
 
 
 def _images(seed, shape, flat=False):
@@ -291,3 +454,24 @@ def test_the_wrapper_chooses_the_staging_path(case):
     # the strides the kernel reads: batch, row, column, channel
     t4 = t if t.dim() == 4 else t.unsqueeze(0)
     assert tuple(a.ps) == t4.stride()
+
+
+def _adam_probe():
+    path = Path(__file__).resolve().parents[1] / "scripts" / "torch_adam_probe.py"
+    spec = importlib.util.spec_from_file_location("torch_adam_probe", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def test_adam_probe_forms_assemble_and_refuse_without_a_card(capsys):
+    """Every form of ``scripts/torch_adam_probe.py`` assembles from the
+    sources (each edit finds its text), each entry point is in its source,
+    and the probe exits 1 where there is no card."""
+    probe = _adam_probe()
+    for name, (_, _, entry, *_rest) in probe.FORMS.items():
+        assert f'extern "C" int {entry}(' in probe.form_source(name), name
+    assert set(probe.TURN_FORMS) <= set(probe.FORMS)
+    if not torch.cuda.is_available():
+        assert probe.main([]) == 1
+        assert "no CUDA device" in capsys.readouterr().err
