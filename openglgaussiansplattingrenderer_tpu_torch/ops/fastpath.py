@@ -56,6 +56,7 @@ from openglgaussiansplattingrenderer_tpu_torch.ops.kernels import record_sort as
 from openglgaussiansplattingrenderer_tpu_torch.ops.kernels import records as kr
 from openglgaussiansplattingrenderer_tpu_torch.ops.kernels import scan as ks
 from openglgaussiansplattingrenderer_tpu_torch.ops.kernels import table as kt
+from openglgaussiansplattingrenderer_tpu_torch.utils.timing import span
 
 # The JAX package rounds capacity to whole expand grid steps (512-record
 # sub-blocks x 8); keeping its rounding keeps num_records and overflow equal.
@@ -96,10 +97,11 @@ def composite_sorted(sorted_fields: torch.Tensor, bounds: torch.Tensor, *,
     """Composite (tile, depth)-sorted records (9, C) over the tiles
     ``tile_ids`` (global ids; ``bounds`` (num_tiles+1,) holds their record
     ranges). Returns (tiled (num_tiles, p, 4), bounds, counts per tile)."""
-    kw = composite_kwargs(width, height, cfg)
-    ox, oy = kc.tile_origins(tile_ids, kw["pw"], kw["ph"], cfg.grid_x)
-    tiled = kc.composite(sorted_fields, bounds, ox, oy, **kw)
-    return tiled, bounds, bounds[1:] - bounds[:-1]
+    with span("gs.composite"):
+        kw = composite_kwargs(width, height, cfg)
+        ox, oy = kc.tile_origins(tile_ids, kw["pw"], kw["ph"], cfg.grid_x)
+        tiled = kc.composite(sorted_fields, bounds, ox, oy, **kw)
+        return tiled, bounds, bounds[1:] - bounds[:-1]
 
 
 # Preprocess and the per-splat inputs of the expand: kernel splat_table (and
@@ -117,17 +119,18 @@ def depth_sort_table(table, prep):
     equal to +0.0, +inf after every finite value, NaN last:
     ``tests/test_torch_binning.py``).
     """
-    fields, tile_min, tile_ext, _ = table
-    inf = torch.full((), float("inf"), device=fields.device)
-    key = torch.where(prep["valid"], prep["depth"], inf).detach()
-    # the JAX package's hoisted sort carries 13 rows (these 9 and four
-    # integer rows), so under the bf16 cotangent mode all 9 float rows are
-    # paired there: round all 9 here too
-    sk, si, sf = kr.sort_with_payload(key, fields, paired_rows=fields.shape[0])
-    zero = torch.zeros((), dtype=torch.float32, device=fields.device)
-    depth = torch.where(torch.isfinite(sk), sk, zero)
-    return (sf.contiguous(), tile_min[si].contiguous(), tile_ext[si].contiguous(),
-            depth), prep["counts"][si].contiguous()
+    with span("gs.sort"):
+        fields, tile_min, tile_ext, _ = table
+        inf = torch.full((), float("inf"), device=fields.device)
+        key = torch.where(prep["valid"], prep["depth"], inf).detach()
+        # the JAX package's hoisted sort carries 13 rows (these 9 and four
+        # integer rows), so under the bf16 cotangent mode all 9 float rows
+        # are paired there: round all 9 here too
+        sk, si, sf = kr.sort_with_payload(key, fields, paired_rows=fields.shape[0])
+        zero = torch.zeros((), dtype=torch.float32, device=fields.device)
+        depth = torch.where(torch.isfinite(sk), sk, zero)
+        return (sf.contiguous(), tile_min[si].contiguous(), tile_ext[si].contiguous(),
+                depth), prep["counts"][si].contiguous()
 
 
 def record_key(cfg: RenderConfig) -> Optional[str]:
@@ -166,8 +169,9 @@ def expand_depth_records(params: Dict[str, torch.Tensor], view, vp, focal_x,
     n = params["means"].shape[0]
     # the record sort stage reads the fields in its pair layout, which the
     # splat table kernel stores beside them
-    table, prep = splat_table(params, view, vp, focal_x, focal_y, tan_fovx,
-                              tan_fovy, width, height, cfg, pairs=key is not None)
+    with span("gs.table"):
+        table, prep = splat_table(params, view, vp, focal_x, focal_y, tan_fovx,
+                                  tan_fovy, width, height, cfg, pairs=key is not None)
     if stop_after == "prep":
         return Stopped(prep["mean2d"], {"conic": prep["conic"],
                                         "colors": table[0][6:9].t(),
@@ -180,20 +184,22 @@ def expand_depth_records(params: Dict[str, torch.Tensor], view, vp, focal_x,
         return Stopped(fields[0], {"fields": fields, "tile_min": tile_min,
                                    "tile_ext": tile_ext, "counts": counts})
     kw = expand_kwargs(n, width, height, cfg)
-    cum_incl = ks.cumsum(counts)
-    if stop_after == "cumsum":
-        return Stopped(cum_incl, {"fields": fields})
-    total_all = cum_incl[-1] if n else torch.zeros(
-        (), dtype=torch.int32, device=cum_incl.device)
-    total = torch.clamp_max(total_all, kw["capacity"])
+    with span("gs.scan"):
+        cum_incl = ks.cumsum(counts)
+        if stop_after == "cumsum":
+            return Stopped(cum_incl, {"fields": fields})
+        total_all = cum_incl[-1] if n else torch.zeros(
+            (), dtype=torch.int32, device=cum_incl.device)
+        total = torch.clamp_max(total_all, kw["capacity"])
     info = {"prep": prep, "total": total, "total_all": total_all}
-    if key is None:
-        rec_f, rec_t, rec_d = kr.expand(*table, cum_incl, **kw)
-    else:
-        sid, rec_t, rec_d, word = kr.expand_ids(*table, cum_incl, **kw, key=key)
-        rec_f = None
-        info.update(sort_word=word, splat_ids=sid, fields=fields, cum_incl=cum_incl,
-                    pairs=prep["pairs"])
+    with span("gs.expand"):
+        if key is None:
+            rec_f, rec_t, rec_d = kr.expand(*table, cum_incl, **kw)
+        else:
+            sid, rec_t, rec_d, word = kr.expand_ids(*table, cum_incl, **kw, key=key)
+            rec_f = None
+            info.update(sort_word=word, splat_ids=sid, fields=fields, cum_incl=cum_incl,
+                        pairs=prep["pairs"])
     if stop_after == "expand":
         if rec_f is None:    # the records' fields from the splat ids
             rec_f = rs.splat_fields(fields, prep["pairs"], sid, cum_incl)
@@ -228,37 +234,38 @@ def sort_records(rec_f, rec_t, rec_d, info: dict, width: int, height: int,
     records' fields ``rec_f``.
 
     Returns (sorted fields (9, C), bounds (T+1,) int32)."""
-    check_sort_config(cfg)
-    t = cfg.num_tiles
-    radix = cfg.record_sort == "radix"
-    key = record_key(cfg)
-    if key is not None:
-        # the record sort stage: pair, or packed on either route (the
-        # "radix" route's plain version on the CPU is the kernels' passes)
-        if "splat_ids" not in info:
-            raise ValueError("sort_records: the records of the pair and packed keys come "
-                             "from expand_depth_records(..., key=record_key(cfg))")
-        return rs.record_sort_splats(
-            info["fields"], info["pairs"], info["splat_ids"],
-            rs.words_of(rec_t, rec_d, key, info["sort_word"]), t, key, info["cum_incl"],
-            passes_model=radix)
-    dev = rec_f.device
-    if cfg.hoist_depth_sort:
-        # records arrive depth-ordered, so a stable sort on the tile id alone
-        # suffices
-        if radix:
-            sk, _, sf = rx.radix_sort_with_payload(rec_t, rec_f, kr.tile_key_bits(t))
+    with span("gs.sort"):
+        check_sort_config(cfg)
+        t = cfg.num_tiles
+        radix = cfg.record_sort == "radix"
+        key = record_key(cfg)
+        if key is not None:
+            # the record sort stage: pair, or packed on either route (the
+            # "radix" route's plain version on the CPU is the kernels' passes)
+            if "splat_ids" not in info:
+                raise ValueError("sort_records: the records of the pair and packed keys come "
+                                 "from expand_depth_records(..., key=record_key(cfg))")
+            return rs.record_sort_splats(
+                info["fields"], info["pairs"], info["splat_ids"],
+                rs.words_of(rec_t, rec_d, key, info["sort_word"]), t, key, info["cum_incl"],
+                passes_model=radix)
+        dev = rec_f.device
+        if cfg.hoist_depth_sort:
+            # records arrive depth-ordered, so a stable sort on the tile id alone
+            # suffices
+            if radix:
+                sk, _, sf = rx.radix_sort_with_payload(rec_t, rec_f, kr.tile_key_bits(t))
+            else:
+                sk, _, sf = kr.sort_with_payload(rec_t, rec_f)
+            tile_bnd = torch.arange(t + 1, dtype=torch.int32, device=dev)
         else:
-            sk, _, sf = kr.sort_with_payload(rec_t, rec_f)
-        tile_bnd = torch.arange(t + 1, dtype=torch.int32, device=dev)
-    else:
-        # q16: the packed key, u32 tile * 2^22 + 22-bit depth, on torch.sort
-        tile_bnd = (torch.arange(t + 1, dtype=torch.int64, device=dev)
-                    << kr.PACKED_DEPTH_BITS)
-        wp, hp = padded_dims(width, height, cfg)
-        sk, sf = kr.sort_records_q16(kr.packed_key(rec_t, rec_d), rec_f, wp, hp)
-    bounds = torch.searchsorted(sk, tile_bnd, right=False).to(torch.int32)
-    return sf, bounds
+            # q16: the packed key, u32 tile * 2^22 + 22-bit depth, on torch.sort
+            tile_bnd = (torch.arange(t + 1, dtype=torch.int64, device=dev)
+                        << kr.PACKED_DEPTH_BITS)
+            wp, hp = padded_dims(width, height, cfg)
+            sk, sf = kr.sort_records_q16(kr.packed_key(rec_t, rec_d), rec_f, wp, hp)
+        bounds = torch.searchsorted(sk, tile_bnd, right=False).to(torch.int32)
+        return sf, bounds
 
 
 def render_fast(params: Dict[str, torch.Tensor], view, vp, focal_x, focal_y,

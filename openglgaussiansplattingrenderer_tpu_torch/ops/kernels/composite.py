@@ -47,6 +47,7 @@ from openglgaussiansplattingrenderer_tpu_torch.ops.kernels.records import (
     NUM_FIELDS,
     _ln_alpha_min,
 )
+from openglgaussiansplattingrenderer_tpu_torch.utils.timing import span
 
 
 def tile_origins(tile_ids: torch.Tensor, pw: int, ph: int, gx: int):
@@ -378,8 +379,9 @@ class Composite(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         rec, bounds, ox, oy, out = ctx.saved_tensors
-        drec = composite_bwd(rec, bounds, ox, oy, out, g.contiguous(), **ctx.args)
-        return (drec,) + (None,) * 9
+        with span("gs.composite.bwd"):
+            drec = composite_bwd(rec, bounds, ox, oy, out, g.contiguous(), **ctx.args)
+            return (drec,) + (None,) * 9
 
 
 def composite(rec: torch.Tensor, bounds: torch.Tensor, ox: torch.Tensor,

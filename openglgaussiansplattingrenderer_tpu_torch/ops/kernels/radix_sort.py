@@ -29,6 +29,7 @@ from typing import Optional, Sequence, Tuple
 import torch
 
 from openglgaussiansplattingrenderer_tpu_torch.ops.kernels import build
+from openglgaussiansplattingrenderer_tpu_torch.utils.timing import span
 
 BITS = 8          # digit width the port sorts with
 CHUNK = 4096      # keys a scatter block owns: kChunk of csrc/radix_sort.cu
@@ -308,8 +309,9 @@ class RadixSortWithPayload(torch.autograd.Function):
     @staticmethod
     def backward(ctx, _g_key, _g_idx, g_fields):
         (si,) = ctx.saved_tensors
-        return None, torch.empty_like(g_fields).index_copy_(
-            1, si.to(torch.int64), g_fields), None
+        with span("gs.sort.bwd"):
+            return None, torch.empty_like(g_fields).index_copy_(
+                1, si.to(torch.int64), g_fields), None
 
 
 def radix_sort_with_payload(key: torch.Tensor, fields: torch.Tensor,

@@ -64,6 +64,7 @@ from openglgaussiansplattingrenderer_tpu_torch.ops.kernels import build
 from openglgaussiansplattingrenderer_tpu_torch.ops.kernels import radix_sort as rx
 from openglgaussiansplattingrenderer_tpu_torch.ops.kernels import records as kr
 from openglgaussiansplattingrenderer_tpu_torch.ops.kernels import table as kt
+from openglgaussiansplattingrenderer_tpu_torch.utils.timing import span
 
 KEYS = ("pair", "packed")
 DIGIT_BITS = 8          # the kernels' digit width
@@ -413,7 +414,9 @@ class RecordSortSplats(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g_sf, _g_bounds):
         order, cum_incl = ctx.saved_tensors
-        return (kr.segsum(record_unsort(g_sf.contiguous(), order), cum_incl),) + (None,) * 9
+        with span("gs.sort.bwd"):
+            g = record_unsort(g_sf.contiguous(), order)
+        return (kr.segsum(g, cum_incl),) + (None,) * 9
 
 
 def record_sort_splats(fields: torch.Tensor, pairs: torch.Tensor, splat_ids: torch.Tensor,

@@ -32,6 +32,7 @@ import numpy as np
 import torch
 
 from openglgaussiansplattingrenderer_tpu_torch.ops.kernels import build
+from openglgaussiansplattingrenderer_tpu_torch.utils.timing import span
 
 NUM_FIELDS = 9
 # Merged items (records and splat ends) a piece of the partition of the
@@ -222,25 +223,26 @@ def segsum(g: torch.Tensor, cum_incl: torch.Tensor) -> torch.Tensor:
     from run to run. On CUDA tensors it takes two launches (the sums of
     each piece of the partition, then the carries of the splats cut between
     pieces), both counted in ``segsum.launches``. Returns (9, N) float32."""
-    n = cum_incl.shape[0]
-    build.expect("segsum g", g, torch.float32, (NUM_FIELDS, None))
-    build.expect("segsum cum_incl", cum_incl, torch.int32, (n,))
-    if not build.on_cuda("segsum", g, cum_incl):
-        return segsum_plain(g, cum_incl)
-    out = torch.empty((NUM_FIELDS, n), dtype=torch.float32, device=g.device)
-    if n == 0:
+    with span("gs.segsum"):
+        n = cum_incl.shape[0]
+        build.expect("segsum g", g, torch.float32, (NUM_FIELDS, None))
+        build.expect("segsum cum_incl", cum_incl, torch.int32, (n,))
+        if not build.on_cuda("segsum", g, cum_incl):
+            return segsum_plain(g, cum_incl)
+        out = torch.empty((NUM_FIELDS, n), dtype=torch.float32, device=g.device)
+        if n == 0:
+            return out
+        c = g.shape[1]
+        lib = _library()
+        # a carry (9 floats) and a first-end splat (int32) for each piece of
+        # the n splat ends and c records
+        pieces = -(-(n + c) // PARTITION_ITEMS)
+        scratch = torch.empty(10 * pieces, dtype=torch.float32, device=g.device)
+        build.check("segsum", lib.gs_segsum(
+            g.data_ptr(), c, cum_incl.data_ptr(), n, out.data_ptr(),
+            scratch.data_ptr(), build.stream_ptr()))
+        segsum.launches += 2     # the sums, then the carries of cut splats
         return out
-    c = g.shape[1]
-    lib = _library()
-    # a carry (9 floats) and a first-end splat (int32) for each piece of
-    # the n splat ends and c records
-    pieces = -(-(n + c) // PARTITION_ITEMS)
-    scratch = torch.empty(10 * pieces, dtype=torch.float32, device=g.device)
-    build.check("segsum", lib.gs_segsum(
-        g.data_ptr(), c, cum_incl.data_ptr(), n, out.data_ptr(),
-        scratch.data_ptr(), build.stream_ptr()))
-    segsum.launches += 2     # the sums, then the carries of cut splats
-    return out
 
 
 class Expand(torch.autograd.Function):
@@ -331,10 +333,11 @@ class SortWithPayload(torch.autograd.Function):
     @staticmethod
     def backward(ctx, _g_key, _g_idx, g_fields):
         (si,) = ctx.saved_tensors
-        if BWD_COT_PACK == "bf16":
-            g_fields = round_cotangent_pairs(g_fields, ctx.paired_rows)
-        return (None, torch.empty_like(g_fields).index_copy_(1, si, g_fields),
-                None)
+        with span("gs.sort.bwd"):
+            if BWD_COT_PACK == "bf16":
+                g_fields = round_cotangent_pairs(g_fields, ctx.paired_rows)
+            return (None, torch.empty_like(g_fields).index_copy_(1, si, g_fields),
+                    None)
 
 
 def sort_with_payload(key: torch.Tensor, fields: torch.Tensor,

@@ -47,6 +47,7 @@ import torch.nn.functional as F
 from torch.autograd.function import once_differentiable
 
 from openglgaussiansplattingrenderer_tpu_torch.ops.kernels import build
+from openglgaussiansplattingrenderer_tpu_torch.utils.timing import span
 
 WINDOW, SIGMA = 11, 1.5            # ssim_map's Gaussian window
 HALO = WINDOW - 1
@@ -332,4 +333,5 @@ class GsLoss(torch.autograd.Function):
     @once_differentiable
     def backward(ctx, dloss):
         pred, target, work = ctx.saved_tensors
-        return gs_loss_bwd(pred, target, work, dloss, ctx.lambda_dssim), None, None
+        with span("gs.loss.bwd"):
+            return gs_loss_bwd(pred, target, work, dloss, ctx.lambda_dssim), None, None

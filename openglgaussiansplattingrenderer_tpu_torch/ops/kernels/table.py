@@ -52,6 +52,7 @@ from openglgaussiansplattingrenderer_tpu_torch.ops.transforms import (
     covariance_quadratic_form,
     quat_to_rotmat,
 )
+from openglgaussiansplattingrenderer_tpu_torch.utils.timing import span
 
 NUM_FIELDS = 9
 # (N + 1)-float arrays of the pair layout: four of field pairs, field 8's
@@ -548,18 +549,19 @@ class SplatTable(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g_fields, g_mean2d, *_):
-        if g_fields is None and g_mean2d is None:
-            return (None,) * 12
-        means, cov6, scales, quats, opacities, colors, sh_rest, view, vp = ctx.saved_tensors
-        if g_fields is None:
-            g_fields = torch.zeros((NUM_FIELDS, ctx.n), dtype=torch.float32,
-                                   device=means.device)
-        inputs = dict(zip(INPUTS[:7], (means, cov6, scales, quats, opacities, colors,
-                                       sh_rest)))
-        grads = splat_table_bwd(inputs, view, vp, ctx.spec, g_fields.contiguous(),
-                                None if g_mean2d is None else g_mean2d.contiguous())
-        g_shift = g_fields[0:2].t().contiguous() if ctx.needs_input_grad[7] else None
-        return (*(grads.get(k) for k in INPUTS[:7]), g_shift, None, None, None, None)
+        with span("gs.table.bwd"):
+            if g_fields is None and g_mean2d is None:
+                return (None,) * 12
+            means, cov6, scales, quats, opacities, colors, sh_rest, view, vp = ctx.saved_tensors
+            if g_fields is None:
+                g_fields = torch.zeros((NUM_FIELDS, ctx.n), dtype=torch.float32,
+                                       device=means.device)
+            inputs = dict(zip(INPUTS[:7], (means, cov6, scales, quats, opacities, colors,
+                                           sh_rest)))
+            grads = splat_table_bwd(inputs, view, vp, ctx.spec, g_fields.contiguous(),
+                                    None if g_mean2d is None else g_mean2d.contiguous())
+            g_shift = g_fields[0:2].t().contiguous() if ctx.needs_input_grad[7] else None
+            return (*(grads.get(k) for k in INPUTS[:7]), g_shift, None, None, None, None)
 
 
 def splat_table(params: Dict[str, torch.Tensor], view, vp, focal_x, focal_y, tan_fovx,

@@ -25,6 +25,7 @@ from openglgaussiansplattingrenderer_tpu_torch.ops.transforms import (
     color_to_dc,
     eval_sh,
 )
+from openglgaussiansplattingrenderer_tpu_torch.utils.timing import span
 
 
 def effective_colors(params, view, cfg: RenderConfig):
@@ -62,46 +63,47 @@ def render_arrays(
     (N,), colors (N,3) (or a packed ``cov6`` (N,6) instead of
     scales/quats), all float32 on one device; ``view``/``vp`` are 4x4.
     """
-    dev = params["means"].device
-    view, vp = _matrix(view, dev), _matrix(vp, dev)
-    if cfg.use_pallas:
-        from openglgaussiansplattingrenderer_tpu_torch.ops import fastpath
+    with span("gs.frame"):
+        dev = params["means"].device
+        view, vp = _matrix(view, dev), _matrix(vp, dev)
+        if cfg.use_pallas:
+            from openglgaussiansplattingrenderer_tpu_torch.ops import fastpath
 
-        return fastpath.render_fast(params, view, vp, focal_x, focal_y,
-                                    tan_fovx, tan_fovy, width, height, cfg)
+            return fastpath.render_fast(params, view, vp, focal_x, focal_y,
+                                        tan_fovx, tan_fovy, width, height, cfg)
 
-    n = params["means"].shape[0]
-    cov6 = params.get("cov6")
-    if cov6 is None:
-        cov6 = build_covariance(params["scales"], params["quats"])
-    prep = projection.preprocess(
-        params["means"], cov6, params["opacities"], view, vp, width, height,
-        focal_x, focal_y, tan_fovx, tan_fovy, cfg)
-    recs = binning.expand_records(
-        prep["counts"], prep["tile_min"], prep["tile_ext"],
-        prep["depth"].detach(), cfg, cfg.capacity(n))
-    sorted_sid, bounds = binning.sort_and_bin(recs, cfg)
-    if "shift2d" in params:
-        # a zero shift whose gradient is the screen-space positional
-        # gradient (the densification statistic), as in the fast path
-        prep = dict(prep, mean2d=prep["mean2d"] + params["shift2d"])
-    gathered = compositing.gather_records(
-        prep, effective_colors(params, view, cfg), sorted_sid)
-    image, aux = compositing.composite(gathered, bounds, width, height, cfg)
+        n = params["means"].shape[0]
+        cov6 = params.get("cov6")
+        if cov6 is None:
+            cov6 = build_covariance(params["scales"], params["quats"])
+        prep = projection.preprocess(
+            params["means"], cov6, params["opacities"], view, vp, width, height,
+            focal_x, focal_y, tan_fovx, tan_fovy, cfg)
+        recs = binning.expand_records(
+            prep["counts"], prep["tile_min"], prep["tile_ext"],
+            prep["depth"].detach(), cfg, cfg.capacity(n))
+        sorted_sid, bounds = binning.sort_and_bin(recs, cfg)
+        if "shift2d" in params:
+            # a zero shift whose gradient is the screen-space positional
+            # gradient (the densification statistic), as in the fast path
+            prep = dict(prep, mean2d=prep["mean2d"] + params["shift2d"])
+        gathered = compositing.gather_records(
+            prep, effective_colors(params, view, cfg), sorted_sid)
+        image, aux = compositing.composite(gathered, bounds, width, height, cfg)
 
-    i32 = torch.int32
-    num_visible = prep["valid"].sum(dtype=i32)
-    stats = {
-        "num_splats": torch.tensor(n, dtype=i32, device=dev),
-        "num_visible": num_visible,
-        "num_culled": prep["culled"].sum(dtype=i32),
-        "num_records": recs["total"],
-        "num_duplicates": recs["total"] - num_visible,
-        "overflow": recs["overflow"],
-        **binning.bin_stats(bounds),
-        "dropped_by_cap": aux["dropped_by_cap"],
-    }
-    return image, stats
+        i32 = torch.int32
+        num_visible = prep["valid"].sum(dtype=i32)
+        stats = {
+            "num_splats": torch.tensor(n, dtype=i32, device=dev),
+            "num_visible": num_visible,
+            "num_culled": prep["culled"].sum(dtype=i32),
+            "num_records": recs["total"],
+            "num_duplicates": recs["total"] - num_visible,
+            "overflow": recs["overflow"],
+            **binning.bin_stats(bounds),
+            "dropped_by_cap": aux["dropped_by_cap"],
+        }
+        return image, stats
 
 
 def render_depth(params: Dict[str, torch.Tensor], view, vp, focal_x, focal_y,

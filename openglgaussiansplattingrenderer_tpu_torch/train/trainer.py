@@ -28,6 +28,7 @@ from openglgaussiansplattingrenderer_tpu_torch.ops.transforms import (
 )
 from openglgaussiansplattingrenderer_tpu_torch.render import render_arrays
 from openglgaussiansplattingrenderer_tpu_torch.train import losses
+from openglgaussiansplattingrenderer_tpu_torch.utils.timing import span
 
 DEFAULT_KEYS = ("means", "log_scales", "quats", "logit_opacities", "colors")
 
@@ -174,36 +175,39 @@ def make_train_step(cfg: RenderConfig, tc: TrainConfig, width: int,
         img, _ = render_arrays(params, view, vp, fx, fy, tfx, tfy,
                                width, height, cfg)
         pred = img[..., :3]
-        if loss_fn is not None:
-            return loss_fn(pred, target), pred
-        return losses.gs_loss(pred, target, tc.lambda_dssim), pred
+        with span("gs.loss"):
+            if loss_fn is not None:
+                return loss_fn(pred, target), pred
+            return losses.gs_loss(pred, target, tc.lambda_dssim), pred
 
     def run(state: TrainState, target, view, vp, fx, fy, tfx, tfy
             ) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
-        keys = optimizer.keys
-        raw = {k: state.raw[k].detach().requires_grad_(True) for k in keys}
-        shift = None
-        if screen:
-            shift = torch.zeros((raw["means"].shape[0], 2), dtype=torch.float32,
-                                device=raw["means"].device, requires_grad=True)
-        loss, pred = loss_of(raw, shift, target, view, vp, fx, fy, tfx, tfy)
-        wrt = [raw[k] for k in keys] + ([shift] if screen else [])
-        gs = torch.autograd.grad(loss, wrt)
-        grads = dict(zip(keys, gs))
-        with torch.no_grad():
-            metrics = {"loss": loss.detach(),
-                       "psnr": losses.psnr(pred.detach(), target)}
+        with span("gs.step"):
+            keys = optimizer.keys
+            raw = {k: state.raw[k].detach().requires_grad_(True) for k in keys}
+            shift = None
             if screen:
-                # pixel gradients scaled to NDC units (x_ndc = 2 x_px / W)
-                scale = gs[-1].new_tensor([width / 2.0, height / 2.0])
-                metrics["densify_grad_norm"] = torch.linalg.vector_norm(
-                    gs[-1] * scale, dim=-1)
-            elif with_grad_norms:
-                metrics["densify_grad_norm"] = torch.linalg.vector_norm(
-                    grads["means"], dim=-1)
-            new_raw, opt_state = optimizer.update(
-                grads, state.opt_state, {k: raw[k].detach() for k in keys})
-        return TrainState(new_raw, opt_state, state.step + 1), metrics
+                shift = torch.zeros((raw["means"].shape[0], 2), dtype=torch.float32,
+                                    device=raw["means"].device, requires_grad=True)
+            loss, pred = loss_of(raw, shift, target, view, vp, fx, fy, tfx, tfy)
+            wrt = [raw[k] for k in keys] + ([shift] if screen else [])
+            gs = torch.autograd.grad(loss, wrt)
+            grads = dict(zip(keys, gs))
+            with torch.no_grad():
+                metrics = {"loss": loss.detach(),
+                           "psnr": losses.psnr(pred.detach(), target)}
+                if screen:
+                    # pixel gradients scaled to NDC units (x_ndc = 2 x_px / W)
+                    scale = gs[-1].new_tensor([width / 2.0, height / 2.0])
+                    metrics["densify_grad_norm"] = torch.linalg.vector_norm(
+                        gs[-1] * scale, dim=-1)
+                elif with_grad_norms:
+                    metrics["densify_grad_norm"] = torch.linalg.vector_norm(
+                        grads["means"], dim=-1)
+                with span("gs.adam"):
+                    new_raw, opt_state = optimizer.update(
+                        grads, state.opt_state, {k: raw[k].detach() for k in keys})
+            return TrainState(new_raw, opt_state, state.step + 1), metrics
 
     run.init = lambda raw: TrainState(dict(raw), optimizer.init(raw), 0)
     run.optimizer = optimizer

@@ -1,5 +1,5 @@
 from openglgaussiansplattingrenderer_tpu_torch.utils.timing import (  # noqa: F401
     FrameTimer,
     fence,
-    time_stages,
+    span,
 )

@@ -9,17 +9,24 @@ CUDA work is queued: a host clock read right after a call measures the
 launch, not the work. Every timer here fences first: ``fence`` waits for
 each CUDA device that a tensor of the result lies on; CPU tensors are
 already computed.
+
+``span`` marks the port's stages from inside: while a ``torch.profiler``
+records, each ``gs.*`` span is a ``record_function`` range on the same
+clock as the kernels, copies and memsets of that profiler's trace; while
+none records, it costs one flag read and records nothing.
 """
 
 from __future__ import annotations
 
+import contextlib
 import statistics
 import subprocess
 import time
-from typing import Callable, Dict, List, Tuple
+from typing import Callable, Dict, List
 
 import numpy as np
 import torch
+from torch.autograd import profiler as _profiler
 
 
 def _tensors(x):
@@ -40,6 +47,19 @@ def fence(x) -> None:
     devices = {t.device for t in _tensors(x) if t.is_cuda}
     for d in devices:
         torch.cuda.synchronize(d)
+
+
+_NO_SPAN = contextlib.nullcontext()
+
+
+def span(name: str):
+    """A context manager that marks one stage of a frame or a step as the
+    range ``name`` (``gs.<stage>``): ``torch.profiler.record_function(name)``
+    while a profiler records, else one shared no-op that allocates and
+    records nothing."""
+    if _profiler._is_profiler_enabled:
+        return torch.profiler.record_function(name)
+    return _NO_SPAN
 
 
 class FrameTimer:
@@ -72,21 +92,6 @@ class FrameTimer:
             "p95_ms": float(np.percentile(a, 95)),
             "fps": float(1000.0 / max(a.mean(), 1e-9)),
         }
-
-
-def time_stages(stages: List[Tuple[str, Callable]], iters: int = 5,
-                warmup: int = 1) -> Dict[str, float]:
-    """Time named thunks, fencing each result; returns name -> ms."""
-    out = {}
-    for name, fn in stages:
-        for _ in range(warmup):
-            fence(fn())
-        t0 = time.perf_counter()
-        for _ in range(iters):
-            r = fn()
-        fence(r)
-        out[name] = (time.perf_counter() - t0) / iters * 1000.0
-    return out
 
 
 def require_device(device: str) -> torch.device:
