@@ -580,8 +580,10 @@ def plain_record_sort():
     searchsorted; index_copy_ back), on CUDA tensors too, inside the block:
     the route the kernels are held to, frame for frame and step for step."""
     from openglgaussiansplattingrenderer_tpu_torch.ops.kernels import record_sort as rs
+    from openglgaussiansplattingrenderer_tpu_torch.render import frame_graphs
 
     fwd, unsort = rs.record_sort_splats_fwd, rs.record_unsort
+    frame_graphs.clear()       # a captured frame would replay the kernels
     rs.record_sort_splats_fwd = (
         lambda fields, pairs, splat_ids, words, num_tiles, key, passes_model=False,
         inverse=True: rs.record_sort_splats_plain(fields, splat_ids, words, num_tiles, key))
@@ -591,6 +593,7 @@ def plain_record_sort():
         yield
     finally:
         rs.record_sort_splats_fwd, rs.record_unsort = fwd, unsort
+        frame_graphs.clear()
 
 
 def device_names(fn):
@@ -648,13 +651,30 @@ def kernel_wrappers():
             "gs_loss_bwd": kl.gs_loss_bwd}
 
 
+FRAME_COUNTS = ("captures", "replays", "eager", "capture_failures")
+
+
+def _render_arrays():
+    from openglgaussiansplattingrenderer_tpu_torch.render import render_arrays
+
+    return render_arrays
+
+
 def reset_launches() -> None:
     for fn in kernel_wrappers().values():
         fn.launches = 0
+    for k in FRAME_COUNTS:
+        setattr(_render_arrays(), k, 0)
 
 
 def read_launches() -> dict:
     return {k: fn.launches for k, fn in kernel_wrappers().items()}
+
+
+def frame_counts() -> dict:
+    """``render_arrays``'s frame counters since ``reset_launches``: frames
+    captured as a graph, replayed, run eagerly, and failed captures."""
+    return {k: getattr(_render_arrays(), k) for k in FRAME_COUNTS}
 
 
 class Frame:
@@ -2371,7 +2391,7 @@ def check_training(frame):
         + " ".join(f"{v:.6f}" for v in conv_hist)
         + f" ({route_rel:.3e} apart); forward + backward {fb_ms:.3f} ms; "
         f"largest colour move {moved:.4f}; overflow {overflow}")
-    log(f"[5] kernel launches on the training path: {launches}")
+    log(f"[5] kernel launches on the training path: {launches}; frames: {frame_counts()}")
     log(json.dumps({"train_step_profile": profile}))
     return launches, statistics.median(wall)
 
@@ -3931,7 +3951,8 @@ def main(argv=None) -> int:
         img_p, _ = check_frame("uniform packed", frames["uniform"].with_cfg(packed))
         check_frame("clustered pair", frames["clustered"])
         render_launches = read_launches()
-        log(f"[3] kernel launches on the render path: {render_launches}")
+        log(f"[3] kernel launches on the render path: {render_launches}; frames: "
+            f"{frame_counts()}")
         reset_launches()
         frames["uniform"].render()
         one = read_launches()

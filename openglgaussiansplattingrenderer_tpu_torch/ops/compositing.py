@@ -29,6 +29,7 @@ from typing import Dict, Tuple
 import torch
 
 from openglgaussiansplattingrenderer_tpu_torch.config import RenderConfig
+from openglgaussiansplattingrenderer_tpu_torch.utils import device as device_
 
 
 def padded_dims(width: int, height: int, cfg: RenderConfig) -> Tuple[int, int]:
@@ -141,7 +142,7 @@ def assemble_image(rgb_tiled: torch.Tensor, trans_tiled: torch.Tensor,
     pw, ph = wp // cfg.grid_x, hp // cfg.grid_y
     gx, gy = cfg.grid_x, cfg.grid_y
     rgb = rgb_tiled / cfg.color_scale
-    bg = torch.tensor(cfg.background, dtype=torch.float32, device=rgb.device)
+    bg = device_.constant(cfg.background, torch.float32, rgb.device)
     rgb = rgb + trans_tiled[..., None] * bg[None, None, :]
     out_alpha = 1.0 - trans_tiled
     tiled = torch.cat([rgb, out_alpha[..., None]], dim=-1)        # (T, P, 4)

@@ -56,6 +56,7 @@ from openglgaussiansplattingrenderer_tpu_torch.ops.kernels import record_sort as
 from openglgaussiansplattingrenderer_tpu_torch.ops.kernels import records as kr
 from openglgaussiansplattingrenderer_tpu_torch.ops.kernels import scan as ks
 from openglgaussiansplattingrenderer_tpu_torch.ops.kernels import table as kt
+from openglgaussiansplattingrenderer_tpu_torch.utils import device as device_
 from openglgaussiansplattingrenderer_tpu_torch.utils.timing import span
 
 # The JAX package rounds capacity to whole expand grid steps (512-record
@@ -309,14 +310,14 @@ def render_fast(params: Dict[str, torch.Tensor], view, vp, focal_x, focal_y,
         return sf[0], {"fields": sf, "bounds": bounds}
     tiled, _, counts_t = composite_sorted(
         sf, bounds, num_tiles=t,
-        tile_ids=torch.arange(t, dtype=torch.int32, device=sf.device),
+        tile_ids=device_.arange(t, torch.int32, sf.device),
         width=width, height=height, cfg=cfg)
     image = assemble_image(tiled[:, :, 0:3], tiled[:, :, 3], width, height, cfg)
 
     i32 = torch.int32
     num_visible = prep["valid"].sum(dtype=i32)
     stats = {
-        "num_splats": torch.tensor(n, dtype=i32, device=sf.device),
+        "num_splats": torch.full((), n, dtype=i32, device=sf.device),
         "num_visible": num_visible,
         "num_culled": prep["culled"].sum(dtype=i32),
         "num_records": total,

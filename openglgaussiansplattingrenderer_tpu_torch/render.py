@@ -17,6 +17,7 @@ from typing import Dict, Optional, Tuple
 import numpy as np
 import torch
 
+from openglgaussiansplattingrenderer_tpu_torch import frame_graph
 from openglgaussiansplattingrenderer_tpu_torch.config import RenderConfig
 from openglgaussiansplattingrenderer_tpu_torch.ops import binning, compositing, projection
 from openglgaussiansplattingrenderer_tpu_torch.ops.transforms import (
@@ -25,6 +26,7 @@ from openglgaussiansplattingrenderer_tpu_torch.ops.transforms import (
     color_to_dc,
     eval_sh,
 )
+from openglgaussiansplattingrenderer_tpu_torch.utils import device as device_
 from openglgaussiansplattingrenderer_tpu_torch.utils.timing import span
 
 
@@ -39,10 +41,6 @@ def effective_colors(params, view, cfg: RenderConfig):
     d = d / torch.clamp_min(torch.linalg.vector_norm(d, dim=1, keepdim=True), 1e-12)
     dc = color_to_dc(params["colors"], cfg.color_scale)
     return eval_sh(dc, sh_rest, d, cfg.sh_degree, cfg.color_scale)
-
-
-def _matrix(m, device) -> torch.Tensor:
-    return torch.as_tensor(m, dtype=torch.float32, device=device)
 
 
 def render_arrays(
@@ -62,16 +60,20 @@ def render_arrays(
     ``params`` holds means (N,3), scales (N,3), quats (N,4), opacities
     (N,), colors (N,3) (or a packed ``cov6`` (N,6) instead of
     scales/quats), all float32 on one device; ``view``/``vp`` are 4x4.
+
+    The fast path runs through ``frame_graphs``: a frame with no gradient
+    whose inputs repeat is replayed as one captured CUDA graph
+    (``frame_graph.py``). ``render_arrays.captures``, ``.replays``,
+    ``.eager`` and ``.capture_failures`` count frames.
     """
     with span("gs.frame"):
         dev = params["means"].device
-        view, vp = _matrix(view, dev), _matrix(vp, dev)
         if cfg.use_pallas:
-            from openglgaussiansplattingrenderer_tpu_torch.ops import fastpath
+            return frame_graphs.render(params, view, vp, focal_x, focal_y,
+                                       tan_fovx, tan_fovy, width, height, cfg)
 
-            return fastpath.render_fast(params, view, vp, focal_x, focal_y,
-                                        tan_fovx, tan_fovy, width, height, cfg)
-
+        render_arrays.eager += 1
+        view, vp = device_.matrices(view, vp, dev)
         n = params["means"].shape[0]
         cov6 = params.get("cov6")
         if cov6 is None:
@@ -94,7 +96,7 @@ def render_arrays(
         i32 = torch.int32
         num_visible = prep["valid"].sum(dtype=i32)
         stats = {
-            "num_splats": torch.tensor(n, dtype=i32, device=dev),
+            "num_splats": torch.full((), n, dtype=i32, device=dev),
             "num_visible": num_visible,
             "num_culled": prep["culled"].sum(dtype=i32),
             "num_records": recs["total"],
@@ -104,6 +106,14 @@ def render_arrays(
             "dropped_by_cap": aux["dropped_by_cap"],
         }
         return image, stats
+
+
+render_arrays.captures = 0
+render_arrays.replays = 0
+render_arrays.eager = 0
+render_arrays.capture_failures = 0
+# the fast path's frames, one captured graph a device
+frame_graphs = frame_graph.FrameGraphs(counter=render_arrays)
 
 
 def render_depth(params: Dict[str, torch.Tensor], view, vp, focal_x, focal_y,
@@ -121,7 +131,7 @@ def render_depth(params: Dict[str, torch.Tensor], view, vp, focal_x, focal_y,
     covers). Differentiable like the colour frame."""
     dev = params["means"].device
     means = params["means"].to(torch.float32)
-    mat = _matrix(vp if mode == "ndc" else view, dev)
+    mat = device_.matrices(view, vp, dev)[1 if mode == "ndc" else 0]
     mx, my, mz = means[:, 0], means[:, 1], means[:, 2]
     p2 = mx * mat[2, 0] + my * mat[2, 1] + mz * mat[2, 2] + mat[2, 3]
     if mode == "ndc":
@@ -203,9 +213,8 @@ def count_records(params, view, vp, focal_x, focal_y, tan_fovx, tan_fovy,
     if cov6 is None:
         cov6 = build_covariance(params["scales"], params["quats"])
     prep = projection.preprocess(
-        params["means"], cov6, params["opacities"], _matrix(view, dev),
-        _matrix(vp, dev), width, height, focal_x, focal_y, tan_fovx, tan_fovy,
-        cfg)
+        params["means"], cov6, params["opacities"], *device_.matrices(view, vp, dev),
+        width, height, focal_x, focal_y, tan_fovx, tan_fovy, cfg)
     return int(prep["counts"].sum())
 
 

@@ -30,10 +30,16 @@ overflow, one splat, a capacity that is not a multiple of 4, inputs off the
 16-byte grid); and the splat table's two kernels on splats placed behind
 the camera, off-screen, past the fov clamp and at zero scale, at splat
 counts that leave a warp or a block ragged, every SH degree and row
-length, both covariance routes, with a shift and without.
+length, both covariance routes, with a shift and without. Frames with no
+gradient: an eager frame and a training step make no synchronising call
+(``torch.cuda.set_sync_debug_mode("error")``); the captured frame's
+replays over an orbit are bit-equal to eager frames, image and stats, keep
+no frame's tensors for the next, count the launches an eager frame counts,
+and show an in-place edit of the parameters.
 """
 
 import dataclasses
+import types
 
 import numpy as np
 import pytest
@@ -50,7 +56,11 @@ from openglgaussiansplattingrenderer_tpu_torch.ops.kernels import scan as ks
 from openglgaussiansplattingrenderer_tpu_torch.ops.kernels import table as kt
 from openglgaussiansplattingrenderer_tpu_torch.ops.transforms import build_covariance
 from openglgaussiansplattingrenderer_tpu_torch.probes import bucketer_probe, cache_key_probe
-from openglgaussiansplattingrenderer_tpu_torch.render import render_arrays, render_stats
+from openglgaussiansplattingrenderer_tpu_torch.render import (
+    frame_graphs,
+    render_arrays,
+    render_stats,
+)
 from openglgaussiansplattingrenderer_tpu_torch.train import trainer
 from test_torch_records_partition import CASES, GX, GY, PH, PW, partition_case, splat_table
 
@@ -1360,3 +1370,128 @@ def test_train_step_launches_adam_and_the_loss_once(card):
     assert (kadam.adam_update.launches, kl.gs_loss_fwd.launches,
             kl.gs_loss_bwd.launches) == tuple(b + 3 * n for b, n in zip(before, (1, 2, 1)))
     assert state.opt_state["count"] == 3 and bool(torch.isfinite(metrics["loss"]))
+
+
+def _orbit_scene(card, sh_degree=3, n=3000, w=160, h=96):
+    """A small clustered scene at SH 3, its frame's arguments a pose, and a
+    config with the capacity pinned: what a viewer renders."""
+    scene = ply_io.make_clustered_scene(n, seed=11, extent=1.5)
+    params = convert.params_from_numpy(scene, card)
+    cfg = port.RenderConfig.for_resolution(w, h, tile_px=16, chunk=64, sh_degree=sh_degree,
+                                           capacity_records=1 << 16,
+                                           background=(0.1, 0.2, 0.3))
+
+    def pose(i):
+        cam = port.Camera(0.0, 0.0, -5.0, width=w, height=h)
+        cam.rotation[1] = 1.5 * i
+        cam.position[0] = 0.3 * np.sin(0.3 * i)
+        cam.update()
+        a = port.camera_args(cam)
+        return (a["view"], a["vp"], a["focal_x"], a["focal_y"], a["tan_fovx"], a["tan_fovy"],
+                w, h)
+
+    return params, cfg, pose
+
+
+def _eager_frame(params, args, cfg):
+    from openglgaussiansplattingrenderer_tpu_torch.ops import fastpath
+
+    view, vp = (torch.as_tensor(m, dtype=torch.float32, device=params["means"].device)
+                for m in args[:2])
+    return fastpath.render_fast(params, view, vp, *args[2:], cfg)
+
+
+def _launches():
+    from openglgaussiansplattingrenderer_tpu_torch import frame_graph
+
+    return {f.__qualname__: f.launches for f in frame_graph.launch_counters()}
+
+
+def _delta(after, before):
+    return {k: after[k] - before[k] for k in after if after[k] != before[k]}
+
+
+def test_an_eager_frame_and_a_train_step_make_no_synchronising_call(card):
+    params, cfg, pose = _orbit_scene(card)
+    w, h = pose(0)[6:]
+    target = render_arrays(params, *pose(5), cfg)[0][..., :3].contiguous()
+    step = trainer.make_train_step(cfg, trainer.TrainConfig(), w, h, param_keys=(
+        "means", "log_scales", "quats", "logit_opacities", "colors", "sh_rest"))
+    state = step.init(trainer.raw_from_params(params))
+    bundle = trainer.camera_bundles([port.Camera(0.3, 0.0, -5.0, width=w, height=h)], card)[0]
+    state, _ = step(state, target, *bundle)         # first calls: plans, constants, the ring
+    torch.cuda.synchronize()
+    frame_graphs.clear()                            # the next frame is a key's first: eager
+    eager, replays = render_arrays.eager, render_arrays.replays
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        img, stats = render_arrays(params, *pose(1), cfg)
+        state, metrics = step(state, target, *bundle)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    # the frame and the step's frame, both eager
+    assert (render_arrays.eager, render_arrays.replays) == (eager + 2, replays)
+    want = _eager_frame(params, pose(1), cfg)
+    assert torch.equal(img, want[0]) and torch.equal(stats["num_records"], want[1]["num_records"])
+    assert bool(torch.isfinite(metrics["loss"]))
+
+
+@pytest.mark.parametrize("matrices", ["numpy", "on_the_card"])
+def test_graph_frames_over_an_orbit_are_bit_equal_to_eager_frames(card, matrices):
+    from openglgaussiansplattingrenderer_tpu_torch import frame_graph
+
+    params, cfg, host_pose = _orbit_scene(card)
+
+    def pose(i):
+        a = host_pose(i)
+        if matrices == "numpy":             # the graph copies them in itself
+            return a
+        return tuple(torch.as_tensor(m, device=card) for m in a[:2]) + a[2:]
+
+    counter = types.SimpleNamespace(captures=0, replays=0, eager=0, capture_failures=0)
+    fg = frame_graph.FrameGraphs(counter)
+    before = _launches()
+    _eager_frame(params, pose(0), cfg)
+    torch.cuda.synchronize()
+    eager_launches = _delta(_launches(), before)
+    assert eager_launches
+    kept, per_frame = [], []
+    with torch.no_grad():
+        for i in range(20):
+            before = _launches()
+            img, stats = fg.render(params, *pose(i), cfg)
+            per_frame.append(_delta(_launches(), before))
+            want_img, want_stats = _eager_frame(params, pose(i), cfg)
+            assert torch.equal(img, want_img), i
+            assert int(want_stats["num_records"]) > 0 and int(want_stats["overflow"]) == 0, i
+            assert list(stats) == list(want_stats)
+            for k, v in want_stats.items():
+                assert stats[k].dtype == v.dtype and torch.equal(stats[k], v), (i, k)
+            if kept:        # frame k is unchanged after frame k + 1
+                assert torch.equal(kept[-1][0], kept[-1][1]), i - 1
+            kept.append((img, img.clone()))
+    assert (counter.eager, counter.captures, counter.replays, counter.capture_failures) == \
+        (1, 1, 19, 0), fg.last_error
+    # an eager frame's launches; the capture frame's warm-up and replay; each replay
+    assert per_frame[0] == eager_launches
+    assert per_frame[1] == {k: 2 * v for k, v in eager_launches.items()}
+    assert all(d == eager_launches for d in per_frame[2:])
+
+
+def test_graph_frames_show_an_in_place_edit_of_the_parameters(card):
+    from openglgaussiansplattingrenderer_tpu_torch import frame_graph
+
+    params, cfg, pose = _orbit_scene(card, sh_degree=0)
+    params = {k: v for k, v in params.items() if k != "sh_rest"}
+    counter = types.SimpleNamespace(captures=0, replays=0, eager=0, capture_failures=0)
+    fg = frame_graph.FrameGraphs(counter)
+    for i in range(3):
+        fg.render(params, *pose(i), cfg)
+    with torch.no_grad():
+        params["colors"].mul_(0.5)
+        params["means"][:, 0].add_(0.25)
+    img, stats = fg.render(params, *pose(3), cfg)
+    want_img, want_stats = _eager_frame(params, pose(3), cfg)
+    assert torch.equal(img, want_img)
+    assert all(torch.equal(stats[k], v) for k, v in want_stats.items())
+    assert (counter.captures, counter.replays, counter.capture_failures) == (1, 3, 0)
