@@ -16,6 +16,10 @@ Modes:
 - ``unchanged``, ``half_batch``, ``altered``: the program with a fault
   planted (``faults.FAULTS``).
 
+A kind of its own (``kinds/<kind>.py``) gives ``ref_bf16`` its own
+``ref_bf16(cfg, mix, seed, device, base)``, and any mode that
+``faults.py`` does not name its ``faulty(program, mode)``.
+
 Prints one JSON line a seed, then the largest and the smallest reading of
 each number.
 """
@@ -48,10 +52,12 @@ def ref_bf16(args, device, base=HERE, man=None):
     man = man if man is not None else manifest.load()
     wl = manifest.workload(man, args.workload)
     cfg, mix = manifest.config(wl["config"], base), manifest.mix(wl["traffic"], base)
+    if mix["kind"] not in ("orbit", "train"):
+        return manifest.kind(mix["kind"], base).ref_bf16(cfg, mix, args.seed, device, base)
     low = rr.Precision(torch.bfloat16)
     fr = rr.frame_of(cfg)
     if mix["kind"] == "orbit":
-        params = scenes.activated(scenes.raw_scene(cfg, args.seed, device))
+        params = scenes.activated(scenes.raw_scene(cfg, args.seed, device, base))
         poses = int(mix["poses"])
         cams = scenes.orbit(cfg, mix, args.seed % poses)
         sample = random.Random(args.seed).sample(range(int(mix["sample_span"])),
@@ -62,7 +68,7 @@ def ref_bf16(args, device, base=HERE, man=None):
             ref, total = rr.render(params, cams[i % poses], fr)
             pairs.append((img, n, ref, total))
         return check.frame_numbers(pairs)
-    raw0 = scenes.raw_scene(cfg, args.seed, device)
+    raw0 = scenes.raw_scene(cfg, args.seed, device, base)
     views = scenes.training_views(cfg)
     rng, stack, chosen = random.Random(args.seed), [], []
     for _ in range(int(mix["checked_steps"])):
@@ -80,6 +86,18 @@ def ref_bf16(args, device, base=HERE, man=None):
                               norms(hi[2]))
 
 
+def planted(program, mode: str, args, base=HERE, man=None):
+    """The program with ``mode``'s fault or control: ``faults.Faulty``'s,
+    or, for a mode it does not name, the cell's kind's ``faulty``."""
+    from benchmark import faults, manifest
+
+    if mode in faults.FAULTS + faults.CONTROLS:
+        return faults.Faulty(program, mode)
+    man = man if man is not None else manifest.load()
+    mix = manifest.mix(manifest.workload(man, args.workload)["traffic"], base)
+    return manifest.kind(mix["kind"], base).faulty(program, mode)
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--workload", required=True)
@@ -89,7 +107,7 @@ def main(argv=None) -> int:
     a = p.parse_args(argv)
     import torch
 
-    from benchmark import faults, run, sut
+    from benchmark import run, sut
 
     if not torch.cuda.is_available():
         print("calibrate: no CUDA device", file=sys.stderr)
@@ -102,7 +120,7 @@ def main(argv=None) -> int:
         if a.mode == "ref_bf16":
             numbers = ref_bf16(args, dev)
         else:
-            program = sut if a.mode == "program" else faults.Faulty(sut, a.mode)
+            program = sut if a.mode == "program" else planted(sut, a.mode, args)
             run.T0 = time.perf_counter()
             res, compared = run.run_cell(args, dev, program=program)
             numbers = {k: v for k, (v, _) in compared.items()}

@@ -3,8 +3,11 @@
 A cell names a configuration and a traffic mix; each is a file of its
 own, ``configs/<config>.json`` and ``traffic/<mix>.json``; a per-layer
 metric is a reader ``metrics/<metric>.py``; a cell's limits for the
-comparison that decides ``correct`` are ``limits/<cell>.json``. Adding
-any of them adds files and manifest entries and edits none.
+comparison that decides ``correct`` are ``limits/<cell>.json``. A mix's
+``kind`` other than the two of ``run.py`` is ``kinds/<kind>.py``; a
+configuration's scene generator other than the clustered one of
+``scenes.py`` is ``generators/<name>.py``. Adding any of them adds files
+and manifest entries and edits none.
 """
 
 from __future__ import annotations
@@ -12,6 +15,7 @@ from __future__ import annotations
 import importlib.util
 import json
 import re
+import sys
 from pathlib import Path
 from typing import List, Tuple
 
@@ -55,17 +59,38 @@ def limits(cell: str, base: Path = HERE) -> dict:
         return {}
 
 
+def _module(base: Path, sub: str, name: str, prefix: str):
+    """The module of ``<base>/<sub>/<name>.py``, loaded once more at each
+    call and registered under ``<prefix><name>``."""
+    if not NAME.match(name):
+        raise ValueError(f"bad {sub} name {name!r}")
+    path = base / sub / f"{name}.py"
+    mod_name = prefix + re.sub(r"[.-]", "_", name)
+    spec = importlib.util.spec_from_file_location(mod_name, path)
+    mod = importlib.util.module_from_spec(spec)
+    sys.modules[mod_name] = mod
+    spec.loader.exec_module(mod)
+    return mod
+
+
 def reader(name: str, base: Path = HERE):
     """The module of ``metrics/<name>.py``: ``read(records)`` returns the
     metric or None, ``KERNELS`` names the kernels of its stage (may be
     empty)."""
-    if not NAME.match(name):
-        raise ValueError(f"bad metric name {name!r}")
-    path = base / "metrics" / f"{name}.py"
-    spec = importlib.util.spec_from_file_location(f"bench_metric_{name.replace('.', '_')}", path)
-    mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mod)
-    return mod
+    return _module(base, "metrics", name, "bench_metric_")
+
+
+def kind(name: str, base: Path = HERE):
+    """The module of ``kinds/<name>.py``: ``CELL`` is its Cell class
+    (``benchmark.cell`` says what it holds)."""
+    return _module(base, "kinds", name, "bench_kind_")
+
+
+def generator(name: str, base: Path = HERE):
+    """The module of ``generators/<name>.py``: ``raw_scene(cfg, device)``
+    makes the configuration's splats in raw form from its
+    ``scene.structure_seed``, in a fixed order."""
+    return _module(base, "generators", name, "bench_generator_")
 
 
 def _applies(metric: dict, cell: str) -> bool:

@@ -6,7 +6,8 @@
 from the root of a checkout. The cell (``BENCHMARK.json``) names a
 configuration (``benchmark/configs/<name>.json``: the scene, its size, the
 frame, the camera, the training views and rates) and a traffic mix
-(``benchmark/traffic/<name>.json``) of one of two kinds:
+(``benchmark/traffic/<name>.json``) of a kind, by its ``kind`` key. Two
+kinds live here:
 
 - ``orbit``: one viewer in a closed loop, a new pose on the ring each
   frame; each frame is handed to ``render_arrays`` and waited for
@@ -15,15 +16,22 @@ frame, the camera, the training views and rates) and a traffic mix
   shuffle of the training views, dispatched back to back, the loss read
   to the host every ``readback_every`` steps and at the window's end.
 
+Any other kind is the file ``benchmark/kinds/<kind>.py``, found by name; its
+``CELL`` subclasses ``benchmark.cell.Cell`` (whose docstring says what a
+kind holds).
+
 The run makes the scene and every input on the device from ``--seed``,
 warms up every shape it will use (set-up), measures for ``--seconds``,
 then checks what the timed path produced against the plain reference
 (``benchmark/reference``). With ``--trace 1``, ``trace_units`` frames or
 steps run under torch.profiler before the measured window, and the
 per-layer readers (``benchmark/metrics/<name>.py``) take their numbers from
-that timeline; the window then gives the host's enqueue times. The last
-line of standard output is the result; the numbers compared, each beside
-its limit, are the last lines of standard error and the result's last key.
+that timeline, from the program's ``gs.*`` spans in it
+(``benchmark/spans.py``) and from the change in the program's counters over
+those units (``sut.counters``); the window then gives the host's enqueue
+times. The last line of standard output is the result; the numbers
+compared, each beside its limit, are the last lines of standard error and
+the result's last key.
 
 Exits non-zero, printing no result, without a CUDA device, and where JAX
 or the JAX package was loaded by the time the window closed.
@@ -47,6 +55,8 @@ HERE = Path(__file__).resolve().parent
 if str(HERE.parent) not in sys.path:
     sys.path.insert(0, str(HERE.parent))
 
+from benchmark.cell import Cell, log, percentile  # noqa: E402
+
 BANNED = ("jax", "jaxlib", "flax", "openglgaussiansplattingrenderer_tpu", "gsplat_tpu")
 
 
@@ -65,40 +75,6 @@ def parse(argv=None):
     return p.parse_args(argv)
 
 
-def log(msg: str) -> None:
-    print(msg, file=sys.stderr, flush=True)
-
-
-def stamp(what: str) -> None:
-    log(f"setup: {what} at {time.perf_counter() - T0:.3f} s")
-
-
-class Cell:
-    """What the two kinds of traffic share: the device, the clock, the
-    per-unit shapes the rooflines read, the host's enqueue spans."""
-
-    def __init__(self, cfg, mix, seed, device, program):
-        import torch
-
-        self.torch = torch
-        self.cfg, self.mix, self.seed, self.dev, self.program = cfg, mix, seed, device, program
-        self.cuda = device.type == "cuda"
-        self.host = []
-
-    def sync(self):
-        if self.cuda:
-            self.torch.cuda.synchronize()
-
-    def shapes(self, num_records, binned) -> dict:
-        from benchmark.reference.render import frame_of
-
-        fr = frame_of(self.cfg)
-        return {"splats": int(self.cfg["splats"]), "sh_degree": int(self.cfg["sh_degree"]),
-                "records": int(num_records), "binned": int(binned),
-                "pixels": fr.tiles * fr.pixels_per_tile,
-                "image_pixels": fr.width * fr.height}
-
-
 class Orbit(Cell):
     unit_name = "frame"
 
@@ -106,14 +82,14 @@ class Orbit(Cell):
         from benchmark import scenes
 
         cfg, mix, p = self.cfg, self.mix, self.program
-        self.params = scenes.activated(scenes.raw_scene(cfg, self.seed, self.dev))
+        self.params = scenes.activated(scenes.raw_scene(cfg, self.seed, self.dev, self.base))
         self.poses = int(mix["poses"])
         self.cams = scenes.orbit(cfg, mix, self.seed % self.poses)
         self.sync()
-        stamp("scene")
+        self.stamp("scene")
         self.rcfg = p.autotune(self.params, self.cams, p.render_config(cfg), cfg,
                                float(mix["capacity_margin"]))
-        stamp(f"capacity {self.rcfg.capacity_records}")
+        self.stamp(f"capacity {self.rcfg.capacity_records}")
         self.sample = set(random.Random(self.seed).sample(range(int(mix["sample_span"])),
                                                           int(mix["sample_frames"])))
         for i in range(int(mix["warmup_frames"])):
@@ -169,7 +145,7 @@ class Orbit(Cell):
         from benchmark import check, scenes
         from benchmark.reference import render as rr
 
-        params = scenes.activated(scenes.raw_scene(self.cfg, self.seed, self.dev))
+        params = scenes.activated(scenes.raw_scene(self.cfg, self.seed, self.dev, self.base))
         fr = rr.frame_of(self.cfg)
         pairs = []
         for i, (img, n) in sorted(kept.items()):
@@ -185,16 +161,16 @@ class Train(Cell):
         from benchmark import check, scenes
 
         cfg, mix, p = self.cfg, self.mix, self.program
-        raw0 = scenes.raw_scene(cfg, self.seed, self.dev)
+        raw0 = scenes.raw_scene(cfg, self.seed, self.dev, self.base)
         self.keys = list(raw0)
         self.views = scenes.training_views(cfg)
         self.targets = scenes.targets(cfg, len(self.views), self.seed, self.dev)
         self.sync()
-        stamp("scene and targets")
+        self.stamp("scene and targets")
         rcfg = p.autotune(scenes.activated(raw0), self.views, p.render_config(cfg), cfg,
                           float(mix["capacity_margin"]))
         self.rcfg = rcfg
-        stamp(f"capacity {rcfg.capacity_records}")
+        self.stamp(f"capacity {rcfg.capacity_records}")
         self.step = p.make_step(cfg, rcfg, self.keys)
         self.bundles = p.bundles(self.views, self.dev)
         self.rng, self.stack = random.Random(self.seed), []
@@ -212,7 +188,7 @@ class Train(Cell):
                 mu = p.moments(self.state)
                 self.prog_grad = {k: check.norm(mu[k]) / 0.1 for k in self.keys}
         self.prog_change = {k: check.norm(self.state.raw[k] - raw0[k]) for k in self.keys}
-        stamp("checked steps")
+        self.stamp("checked steps")
         del raw0
         for _ in range(int(mix["warmup_steps"])):
             v = self.next_view()
@@ -278,7 +254,7 @@ class Train(Cell):
         from benchmark import check, scenes
         from benchmark.reference import train as rt
 
-        raw0 = scenes.raw_scene(self.cfg, self.seed, self.dev)
+        raw0 = scenes.raw_scene(self.cfg, self.seed, self.dev, self.base)
         losses, first, change = rt.run_steps(raw0, kept, self.cfg, len(kept))
         ref_grad = {k: check.norm(first[k]) for k in self.keys}
         ref_change = {k: check.norm(change[k]) for k in self.keys}
@@ -289,13 +265,12 @@ class Train(Cell):
 KINDS = {"orbit": Orbit, "train": Train}
 
 
-def percentile(values, q: float) -> float:
-    """The q-th percentile, linear between the nearest ranks."""
-    v = sorted(values)
-    x = (len(v) - 1) * q / 100.0
-    lo = int(x)
-    hi = min(lo + 1, len(v) - 1)
-    return v[lo] + (v[hi] - v[lo]) * (x - lo)
+def kind(name: str, base: Path = HERE):
+    """The Cell class of the traffic kind ``name``: one of ``KINDS``, or
+    the ``CELL`` of ``kinds/<name>.py`` under ``base``."""
+    from benchmark import manifest
+
+    return KINDS[name] if name in KINDS else manifest.kind(name, base).CELL
 
 
 def traced_segment(cell, units: int):
@@ -330,7 +305,7 @@ def run_cell(args, device, base: Path = HERE, man: dict | None = None, program=N
     result dict, the compared numbers {name: [number, limit]})."""
     import torch
 
-    from benchmark import check, manifest, roofline, trace
+    from benchmark import check, manifest, roofline, spans, trace
 
     man = man if man is not None else manifest.load()
     wl = manifest.workload(man, args.workload)
@@ -338,8 +313,8 @@ def run_cell(args, device, base: Path = HERE, man: dict | None = None, program=N
     e2e, layer = manifest.metrics_of(man, wl["name"])
     if program is None:
         from benchmark import sut as program
-    cell = KINDS[mix["kind"]](cfg, mix, args.seed, device, program)
-    stamp("imports")
+    cell = kind(mix["kind"], base)(cfg, mix, args.seed, device, program, base, T0)
+    cell.stamp("imports")
     cuda = device.type == "cuda"
     if cuda:
         torch.cuda.reset_peak_memory_stats()
@@ -352,7 +327,9 @@ def run_cell(args, device, base: Path = HERE, man: dict | None = None, program=N
     traced, events_s, first = None, None, 0
     if args.trace:
         first = int(mix["trace_units"])
+        before = program.counters()
         traced, events_s = traced_segment(cell, first)
+        counters = {k: v - before.get(k, 0) for k, v in program.counters().items()}
     n = first
     t_start = time.perf_counter()
     while time.perf_counter() - t_start < args.seconds:
@@ -375,7 +352,8 @@ def run_cell(args, device, base: Path = HERE, man: dict | None = None, program=N
         rec = trace.Records(kernels=traced["kernels"], window_s=traced["window_s"],
                             busy_s=traced["busy_s"], units=cell.unit_shapes(0, first),
                             host_s=list(cell.host), power=roofline.power_limit() if cuda else "",
-                            device_ops=traced["device_ops"], idle_gaps=traced["idle_gaps"])
+                            device_ops=traced["device_ops"], idle_gaps=traced["idle_gaps"],
+                            spans=traced["spans"], counters=counters)
         readers = {m["name"]: manifest.reader(m["name"], base) for m in layer}
         for m in layer:
             v = readers[m["name"]].read(rec)
@@ -389,6 +367,9 @@ def run_cell(args, device, base: Path = HERE, man: dict | None = None, program=N
         log(f"trace: {first} {cell.unit_name}s, window {rec.window_s!r} s, profiler busy "
             f"{rec.busy_s!r} s, kernels {sum(rec.kernels.values())!r} s, CUDA events "
             f"{events_s!r} s; card {rec.power}")
+        for line in spans.lines(rec.spans, rec.units):
+            log(line)
+        log("counters: " + json.dumps({k: v for k, v in rec.counters.items() if v}))
     else:
         for m in e2e:
             v = setup_s if m["name"] == "setup_s" else tally["values"].get(m["name"])

@@ -1,10 +1,14 @@
 """Scenes, cameras and training targets, made on the device from a seed.
 
-The scene generator is a torch copy of the port's clustered generator
+A configuration's ``scene.generator`` names its scene generator. The
+``clustered`` one is here, a torch copy of the port's clustered generator
 (``io/ply.make_clustered_scene``: Zipf-sized Gaussian clusters of splats
 with lognormal sizes tied to their cluster's spread, and a uniform dust
 cloud), kept here so the yardstick does not move when the program does.
-Two seeds drive it:
+Any other is ``generators/<name>.py`` under the benchmark's directory,
+found by name, whose ``raw_scene(cfg, device)`` makes the splats from
+``structure_seed`` alone.
+Two seeds drive every generator:
 
 - the configuration's ``structure_seed`` fixes the scene every run shares,
   as a captured scene is fixed: cluster centres, spreads and populations,
@@ -24,7 +28,8 @@ scene's centre at the configuration's distance.
 from __future__ import annotations
 
 import math
-from typing import Dict, List
+from pathlib import Path
+from typing import Dict, List, Optional
 
 import numpy as np
 import torch
@@ -54,14 +59,20 @@ def _structure(sc: dict, n: int):
     return centres, csig, pop
 
 
-def raw_scene(cfg: dict, seed: int, device) -> Dict[str, torch.Tensor]:
+def raw_scene(cfg: dict, seed: int, device, base: Optional[Path] = None
+              ) -> Dict[str, torch.Tensor]:
     """The configuration's scene in raw form: ``means`` (N, 3),
     ``log_scales`` (N, 3), ``quats`` (N, 4), ``logit_opacities`` (N,),
     ``colors`` (N, 3) in 0..255, and ``sh_rest`` (N, 45) where the
-    configuration's SH degree is above 0. float32 on ``device``."""
+    configuration's SH degree is above 0. float32 on ``device``. A
+    generator file is looked for under ``base`` (the benchmark's directory
+    by default)."""
     sc = cfg["scene"]
     if sc["generator"] != "clustered":
-        raise ValueError(f"unknown scene generator {sc['generator']!r}")
+        from benchmark import manifest
+
+        gen = manifest.generator(sc["generator"], base if base is not None else manifest.HERE)
+        return _in_order(gen.raw_scene(cfg, device), seed, device)
     n = int(cfg["splats"])
     centres, csig, pop = _structure(sc, n)
     n_cl = int(pop.sum())
@@ -97,7 +108,12 @@ def raw_scene(cfg: dict, seed: int, device) -> Dict[str, torch.Tensor]:
         rest = 3 * ((int(cfg["sh_degree"]) + 1) ** 2 - 1)
         raw["sh_rest"] = float(sc["sh_rest_sigma"]) * torch.randn(
             (n, rest), generator=g, device=device, dtype=f32)
-    # the rows in the run's own order
+    return _in_order(raw, seed, device)
+
+
+def _in_order(raw: Dict[str, torch.Tensor], seed: int, device) -> Dict[str, torch.Tensor]:
+    """The rows in the run's own order, drawn from ``seed``."""
+    n = int(raw["means"].shape[0])
     perm = torch.randperm(n, generator=generator(seed, device), device=device)
     return {k: v[perm].contiguous() for k, v in raw.items()}
 

@@ -1,11 +1,12 @@
-#!/usr/bin/env python3
 """The program's own ``gs.*`` spans in a traced window, put down to stages.
 
 The port marks each stage of a frame or a training step with a
 ``gs.<stage>`` profiler range (``utils.timing.span``). While torch.profiler
 records, each is a ``user_annotation`` event on the clock of the device's
-kernels, copies and memsets. ``reduce_spans`` reads the chrome-trace events
-of a traced window (the ``bench.window`` annotation) and gives:
+kernels, copies and memsets. Every ``gs.*`` span but ``gs.frame`` and
+``gs.step`` is a stage, read by its own name, so a span the port adds is
+read with no edit here. ``reduce_spans`` reads the chrome-trace events of a
+traced window (the ``bench.window`` annotation) and gives:
 
 - for each stage: its host seconds; the kernel-launch calls
   (``cudaLaunchKernel*``, ``cuLaunchKernel*``) made inside it on its own
@@ -25,32 +26,26 @@ of a traced window (the ``bench.window`` annotation) and gives:
 group's host ms, the glue ms and the launches, each a mean over the root
 spans, and the records layer's share of its roofline.
 
-    python3 benchmark/spans.py --workload <cell> --seed <n> --seconds <s>
-
-runs the cell as ``run.py ... --trace 1`` does and prints the same result
-line; on standard error, beside run.py's ``unattributed`` lines, one
-``span:`` line a stage, the roots' line, ``glue_sync:`` and
-``idle_by_span:`` lines and a ``spans:`` line with ``values`` as JSON.
+``run.py``'s traced runs (``--trace 1``) read them from ``Records.spans``
+and print ``lines`` of them on standard error, beside the
+``unattributed`` lines: one ``span:`` line a stage, the roots' line,
+``glue_sync:`` and ``idle_by_span:`` lines and a ``spans:`` line with
+``values`` as JSON.
 """
 
 from __future__ import annotations
 
 import bisect
-import contextlib
 import json
-import sys
 from collections import defaultdict
-from pathlib import Path
 from typing import Dict, Iterable, List, Optional
 
-HERE = Path(__file__).resolve().parent
-if str(HERE.parent) not in sys.path:
-    sys.path.insert(0, str(HERE.parent))
-
-from benchmark import roofline as rl  # noqa: E402
-from benchmark import trace  # noqa: E402
+from benchmark import roofline as rl
+from benchmark import trace
 
 FRAME, STEP = "gs.frame", "gs.step"
+# the order in which the stages known today are listed; any other gs.* span
+# is a stage too, listed after them by name
 STAGES = ("gs.table", "gs.scan", "gs.expand", "gs.sort", "gs.composite", "gs.loss",
           "gs.loss.bwd", "gs.composite.bwd", "gs.sort.bwd", "gs.segsum", "gs.table.bwd",
           "gs.adam")
@@ -132,7 +127,7 @@ def reduce_spans(events: List[dict]) -> dict:
 
     roots = [(a, b, n) for a, b, n, _ in spans
              if n == STEP or (n == FRAME and not in_step(a, b))]
-    stage_spans = [s for s in spans if s[2] in STAGES]
+    stage_spans = [s for s in spans if s[2] not in (FRAME, STEP)]
     by_thread = defaultdict(list)
     for a, b, n, tid in stage_spans:
         by_thread[tid].append((a, b, n))
@@ -142,8 +137,9 @@ def reduce_spans(events: List[dict]) -> dict:
         hit = by_thread[tid].at(t) if tid in by_thread else None
         return hit[2] if hit else None
 
+    found = {s[2] for s in stage_spans}
     stages = {n: {"count": 0, "host_s": 0.0, "launches": 0, "device_s": 0.0, "sync_s": 0.0}
-              for n in STAGES}
+              for n in [n for n in STAGES if n in found] + sorted(found - set(STAGES))}
     for a, b, n, _ in stage_spans:
         stages[n]["count"] += 1
         stages[n]["host_s"] += (b - a) * 1e-6
@@ -267,45 +263,3 @@ def lines(sp: dict, units: List[dict]) -> List[str]:
     out.append("spans: " + json.dumps(values(sp, units)))
     return out
 
-
-@contextlib.contextmanager
-def reading_spans(out: List[str]):
-    """While open, the traced window that ``run.run_cell`` reads is also
-    reduced to its spans: ``lines`` of it, for the window's own traced
-    units, are appended to ``out`` and printed on standard error beside
-    run.py's ``unattributed`` lines. What run.py reads is unchanged."""
-    from benchmark import run
-
-    kept = {}
-    reduce_events, records = trace.reduce_events, trace.Records
-
-    def reduce_both(events, top=10):
-        kept["spans"] = reduce_spans(events)
-        return reduce_events(events, top)
-
-    def records_and_spans(**kw):
-        rec = records(**kw)
-        for line in lines(kept.pop("spans"), rec.units):
-            out.append(line)
-            run.log(line)
-        return rec
-
-    trace.reduce_events, trace.Records = reduce_both, records_and_spans
-    try:
-        yield out
-    finally:
-        trace.reduce_events, trace.Records = reduce_events, records
-
-
-def main(argv=None) -> int:
-    """``run.py``'s run of a cell with ``--trace 1``, the spans of its
-    traced window printed beside its own lines."""
-    from benchmark import run
-
-    argv = list(sys.argv[1:] if argv is None else argv)
-    with reading_spans([]):
-        return run.main(argv + ["--trace", "1"])
-
-
-if __name__ == "__main__":
-    sys.exit(main())

@@ -6,13 +6,18 @@ fast path, ``use_pallas=True``), its capacity pinned by the port's own
 ``autotune_capacity``; a training step is the callable
 ``train.make_train_step`` returns, fed as ``fit_scene`` feeds it. The
 benchmark hands the program only what it made itself: parameters,
-targets and camera matrices.
+targets and camera matrices. A kind of traffic of its own reaches any
+other part of the port by ``module``; ``counters`` reads what the port
+counts.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import importlib
+import inspect
+import re
+import sys
 from typing import Dict, List
 
 import torch
@@ -24,6 +29,32 @@ gs_render = importlib.import_module(gs.__name__ + ".render")
 gs_trainer = importlib.import_module(gs.__name__ + ".train.trainer")
 
 PROGRAM = gs.__name__
+DOTTED = re.compile(r"^[A-Za-z_][A-Za-z0-9_]*(\.[A-Za-z_][A-Za-z0-9_]*)*$")
+
+
+def module(name: str):
+    """The port's submodule of dotted name ``name`` under the package
+    (``"train.densify"``); a name that does not spell one is refused."""
+    if not DOTTED.match(name):
+        raise ValueError(f"not a submodule's dotted name: {name!r}")
+    return importlib.import_module(f"{PROGRAM}.{name}")
+
+
+def counters() -> Dict[str, int]:
+    """Every counter the port keeps: each integer attribute of a function
+    of the port's loaded modules, by ``<module>.<function>.<attribute>``
+    under the package (``ops.kernels.scan.cumsum.launches``,
+    ``render.render_arrays.replays``), so a counter the port adds is read
+    with no edit here."""
+    out = {}
+    for name, mod in list(sys.modules.items()):
+        if mod is None or not name.startswith(PROGRAM + "."):
+            continue
+        for f in vars(mod).values():
+            if inspect.isfunction(f) and f.__module__ == name:
+                out.update({f"{name[len(PROGRAM) + 1:]}.{f.__qualname__}.{k}": v
+                            for k, v in vars(f).items() if type(v) is int})
+    return out
 
 
 def render_config(cfg: dict, **over) -> gs.RenderConfig:

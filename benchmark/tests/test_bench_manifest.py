@@ -82,7 +82,8 @@ def test_every_name_is_found_as_a_file_of_its_own():
         assert (REPO / c["file"]).is_file() and c["file"].startswith("benchmark/")
         assert manifest.config(c["name"])["name"] == c["name"]
     for w in MAN["workloads"]:
-        assert manifest.mix(w["traffic"])["kind"] in ("orbit", "train")
+        kind = manifest.mix(w["traffic"])["kind"]
+        assert kind in ("orbit", "train") or manifest.kind(kind).CELL, kind
         assert manifest.limits(w["name"]).get("limits"), w["name"]
     for m in MAN["per_layer"]:
         assert callable(manifest.reader(m["name"]).read)

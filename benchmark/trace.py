@@ -4,8 +4,11 @@ per-layer readers take.
 ``Records`` holds the device seconds of each kernel by the profiler's
 name, the traced window's length and the device's busy time in it (the
 union of every kernel, copy and memset interval), the shapes of each
-traced frame or step, and the host's seconds for each untraced call (the
-enqueue cost, before any synchronisation). ``breakdown`` gives the
+traced frame or step, the host's seconds for each untraced call (the
+enqueue cost, before any synchronisation), the program's ``gs.*`` spans in
+the window (``spans.reduce_spans``) and the change in each of the
+program's counters over the traced units (``sut.counters``; empty where
+the program keeps none). ``breakdown`` gives the
 device operations that took most time and the longest idle gaps by what
 the host was doing: the innermost host event (operator, annotation or
 runtime call) that covers the middle of the gap.
@@ -35,6 +38,8 @@ class Records:
     power: str = ""
     device_ops: List[Tuple[str, float]] = dataclasses.field(default_factory=list)
     idle_gaps: List[Tuple[str, float]] = dataclasses.field(default_factory=list)
+    spans: dict = dataclasses.field(default_factory=dict)
+    counters: Dict[str, int] = dataclasses.field(default_factory=dict)
 
 
 def _union(intervals: List[Tuple[float, float]]) -> List[Tuple[float, float]]:
@@ -99,13 +104,15 @@ def reduce_events(events: List[dict], top: int = 10) -> dict:
 
 
 def read_profile(prof) -> dict:
-    """``reduce_events`` of a finished ``torch.profiler.profile``; the
-    timeline goes through a chrome trace in a temporary directory, which
-    is removed."""
+    """``reduce_events`` of a finished ``torch.profiler.profile``, and its
+    ``spans.reduce_spans`` under ``spans``; the timeline goes through a
+    chrome trace in a temporary directory, which is removed."""
+    from benchmark import spans
+
     with tempfile.TemporaryDirectory(prefix="bench-trace-") as d:
         path = os.path.join(d, "trace.json")
         prof.export_chrome_trace(path)
         with open(path) as f:
             doc = json.load(f)
     events = doc["traceEvents"] if isinstance(doc, dict) else doc
-    return reduce_events(events)
+    return dict(reduce_events(events), spans=spans.reduce_spans(events))
