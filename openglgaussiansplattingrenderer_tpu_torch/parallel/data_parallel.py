@@ -274,18 +274,16 @@ def fit_scene_dp(params: Dict[str, torch.Tensor], targets, cameras,
             raw, opt_state, loss, p, gnorm, seen = step(raw, opt_state, *args)
             grad_accum, seen_count = dn.accumulate_grad_stats_batched(
                 grad_accum, seen_count, gnorm, seen, alive)
-            if (dc.start_step <= i < dc.stop_step and i > 0
-                    and i % dc.interval == 0):
+            if dc.densifies_at(i):
                 new_raw, alive, changed, dstats = dn.densify_and_prune(
-                    raw[0], alive, grad_accum, seen_count, dc, generator=gen)
+                    raw[0], alive, grad_accum, seen_count, dc, generator=gen, iteration=i)
                 raw = replicate_tree(new_raw, mesh)
                 opt_state = replicate_tree(dn.reset_rows(opt_state[0], changed), mesh)
                 grad_accum = torch.zeros_like(grad_accum)
                 seen_count = torch.zeros_like(seen_count)
                 if verbose:
                     print(f"step {i}: densify { {k: int(v) for k, v in dstats.items()} }")
-            if (dc.opacity_reset_interval and i > 0 and i < dc.stop_step
-                    and i % dc.opacity_reset_interval == 0):
+            if dc.resets_opacity_at(i):
                 raw = replicate_tree(dn.reset_opacity(raw[0], dc.opacity_reset_ceiling),
                                      mesh)
                 opt_state = replicate_tree(

@@ -512,10 +512,10 @@ def fit_scene_2d(params, targets, cameras, cfg: RenderConfig,
             raw_sh, opt_sh, loss, p, over, gnorm, seen = step(raw_sh, opt_sh, *args)
             grad_accum, seen_count = dn.accumulate_grad_stats_batched(
                 grad_accum, seen_count, gnorm, seen, alive)
-            if (dc.start_step <= i < dc.stop_step and i > 0 and i % dc.interval == 0):
+            if dc.densifies_at(i):
                 raw, opt_state = gathered()
                 raw, alive, changed, dstats = dn.densify_and_prune(
-                    raw, alive, grad_accum, seen_count, dc, generator=gen)
+                    raw, alive, grad_accum, seen_count, dc, generator=gen, iteration=i)
                 raw_sh = shard_raw_2d(raw, mesh)
                 opt_sh = _place_state_2d(dn.reset_rows(opt_state, changed), mesh,
                                          dc.capacity)
@@ -523,8 +523,7 @@ def fit_scene_2d(params, targets, cameras, cfg: RenderConfig,
                 seen_count = torch.zeros_like(seen_count)
                 if verbose:
                     print(f"step {i}: densify { {k: int(v) for k, v in dstats.items()} }")
-            if (dc.opacity_reset_interval and i > 0 and i < dc.stop_step
-                    and i % dc.opacity_reset_interval == 0):
+            if dc.resets_opacity_at(i):
                 raw, opt_state = gathered()
                 raw_sh = shard_raw_2d(dn.reset_opacity(raw, dc.opacity_reset_ceiling), mesh)
                 opt_sh = _place_state_2d(dn.reset_opacity_moments(opt_state, dc.capacity),

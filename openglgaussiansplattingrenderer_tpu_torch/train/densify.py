@@ -26,6 +26,14 @@ The selection statistic is the accumulated, visibility-normalised norm of
 the positional gradient (``DensifyConfig.statistic``): ``"screen"``, 3DGS's
 own (``trainer.make_train_step`` ``grad_stat``), or ``"world"``.
 
+``make_adaptive_step`` is one iteration of the adaptive loop for a caller
+that feeds one view at a time (``fit_scene_adaptive`` runs through it):
+the training step with its statistic, the statistic's accumulation, the
+densify event and the opacity reset on their schedules, under the spans
+``gs.grad_stats``, ``gs.densify`` and ``gs.opacity_reset``.
+``densify_and_prune.calls``, ``accumulate_grad_stats.calls`` and
+``reset_opacity.calls`` count the calls.
+
 Random draws come from an explicit ``torch.Generator``; the JAX package
 draws from a ``jax.random`` key. The two streams differ, so parity tests
 inject the draws (``normals``) instead of a seed.
@@ -34,6 +42,7 @@ inject the draws (``normals``) instead of a seed.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import time
 from typing import Callable, Dict, Optional, Tuple
 
@@ -44,9 +53,22 @@ from openglgaussiansplattingrenderer_tpu_torch.ops.transforms import (
     inverse_sigmoid,
     quat_to_rotmat,
 )
+from openglgaussiansplattingrenderer_tpu_torch.utils import device as device_
+from openglgaussiansplattingrenderer_tpu_torch.utils.timing import span
 
 DEAD_LOGIT = -20.0        # sigmoid(-20) ~ 2e-9 << 1/255
 DEAD_LOG_SCALE = -20.0    # radius ~ 0: the dilation's few pixels
+
+
+def _counted(f):
+    """``f`` with ``.calls``, the number of calls made to it."""
+    @functools.wraps(f)
+    def counting(*args, **kwargs):
+        counting.calls += 1
+        return f(*args, **kwargs)
+
+    counting.calls = 0
+    return counting
 
 
 @dataclasses.dataclass(frozen=True)
@@ -65,6 +87,21 @@ class DensifyConfig:
     # the ceiling and wipe the opacity moments); 0 disables.
     opacity_reset_interval: int = 0
     opacity_reset_ceiling: float = 0.01
+    # World-size prune (3DGS's big_points_ws): past iteration
+    # big_prune_after, rows whose largest scale exceeds big_scale_frac *
+    # scene_extent die with the transparent ones (3DGS: 0.1 past the first
+    # opacity reset, 3000); 0 disables.
+    big_scale_frac: float = 0.0
+    big_prune_after: int = 0
+
+    def densifies_at(self, i: int) -> bool:
+        """Whether iteration ``i`` ends with a densify event."""
+        return self.start_step <= i < self.stop_step and i > 0 and i % self.interval == 0
+
+    def resets_opacity_at(self, i: int) -> bool:
+        """Whether iteration ``i`` ends with an opacity reset."""
+        return (self.opacity_reset_interval > 0 and 0 < i < self.stop_step
+                and i % self.opacity_reset_interval == 0)
 
 
 def pad_to_capacity(raw: Dict[str, torch.Tensor], capacity: int
@@ -96,13 +133,13 @@ def pad_to_capacity(raw: Dict[str, torch.Tensor], capacity: int
     return padded, alive
 
 
+@_counted
 def reset_opacity(raw: Dict[str, torch.Tensor], ceiling: float = 0.01
                   ) -> Dict[str, torch.Tensor]:
     """Clamp every row's opacity to <= ceiling (3DGS's periodic reset).
     Dead rows sit far below any sensible ceiling, so it leaves them be."""
     lo = raw["logit_opacities"]
-    cap_logit = inverse_sigmoid(torch.tensor(ceiling, dtype=torch.float32,
-                                             device=lo.device))
+    cap_logit = inverse_sigmoid(device_.constant((ceiling,), torch.float32, lo.device))
     return dict(raw, logit_opacities=torch.minimum(lo, cap_logit))
 
 
@@ -153,6 +190,7 @@ def split_normals(cap: int, generator: Optional[torch.Generator] = None,
                        dtype=dtype)
 
 
+@_counted
 @torch.no_grad()
 def densify_and_prune(
     raw: Dict[str, torch.Tensor],
@@ -162,6 +200,7 @@ def densify_and_prune(
     dc: DensifyConfig,
     generator: Optional[torch.Generator] = None,
     normals: Optional[torch.Tensor] = None,
+    iteration: Optional[int] = None,
 ) -> Tuple[Dict[str, torch.Tensor], torch.Tensor, torch.Tensor,
            Dict[str, torch.Tensor]]:
     """One adaptive-density step on static shapes, without a host sync.
@@ -171,15 +210,22 @@ def densify_and_prune(
     optimizer moments reset (``reset_rows``) and the caller zeroes the
     gradient accumulators. ``normals`` (2, cap, 3) injects the draws
     (``split_normals``); else they come from ``generator`` on the params'
-    device.
+    device. ``iteration`` is the training iteration the event ends, which
+    the world-size prune (``dc.big_scale_frac``) needs.
     """
     cap = alive.shape[0]
     dev = raw["means"].device
     opacities = torch.sigmoid(raw["logit_opacities"])
     scales = torch.exp(raw["log_scales"])
 
-    # prune: transparent splats die and their slots free up at once
+    # prune: transparent splats die and their slots free up at once, and
+    # past big_prune_after those larger than a share of the scene too
     keep = alive & (opacities >= dc.min_opacity)
+    if dc.big_scale_frac > 0.0:
+        if iteration is None:
+            raise ValueError("the world-size prune (big_scale_frac > 0) needs the iteration")
+        if iteration > dc.big_prune_after:
+            keep = keep & ~(scales.amax(dim=-1) > dc.big_scale_frac * dc.scene_extent)
     pruned = (alive & ~keep).sum()
     alive = keep
 
@@ -221,8 +267,7 @@ def densify_and_prune(
     def offsets(z):
         return torch.einsum("nij,nj->ni", rot, z * sig)
 
-    shrink = torch.log(torch.tensor(dc.split_factor, dtype=raw["log_scales"].dtype,
-                                    device=dev))
+    shrink = torch.log(device_.constant((dc.split_factor,), raw["log_scales"].dtype, dev))
 
     def choose(base, sampled, mask):
         return torch.where(mask.reshape((cap,) + (1,) * (base.ndim - 1)),
@@ -255,6 +300,7 @@ def densify_and_prune(
     return out, alive, changed, stats
 
 
+@_counted
 def accumulate_grad_stats(grad_accum: torch.Tensor, seen_count: torch.Tensor,
                           gnorm: torch.Tensor, alive: torch.Tensor
                           ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -289,13 +335,114 @@ def _seeded_generator(device, seed: int, step: int) -> torch.Generator:
     return g
 
 
+class AdaptiveStep:
+    """One iteration of 3DGS's adaptive loop a call, for a caller that feeds
+    one view at a time: ``(state, target, *camera bundle) -> (state,
+    metrics)``, in ``fit_scene_adaptive``'s order:
+
+    1. the training step with the selection statistic
+       (``make_train_step(..., with_grad_norms=True, grad_stat=dc.statistic)``);
+    2. its accumulation (``accumulate_grad_stats``, span ``gs.grad_stats``);
+    3. on ``dc.densifies_at(iteration)``: ``densify_and_prune``,
+       ``reset_rows`` of the changed rows and zeroed accumulators (span
+       ``gs.densify``), then ``on_densify(iteration, (raw, alive) before,
+       (raw, alive) after, stats)`` where one is set;
+    4. on ``dc.resets_opacity_at(iteration)``: the opacity reset and its
+       moments (span ``gs.opacity_reset``).
+
+    No host sync. The step owns the densify state: ``alive``,
+    ``grad_accum``, ``seen_count``, ``iteration`` (the iteration the next
+    call runs) and ``generator`` (the split draws), all set by ``init``
+    and free to be set from a checkpoint. While ``on_densify`` runs,
+    ``last_event`` holds the event's inputs besides the hook's
+    (``grad_accum``, ``seen_count``, ``opt_state``, the generator's
+    ``rng_state`` before the draw) and outputs (``changed``,
+    ``new_opt_state``); after it, None. ``metrics`` are the training
+    step's.
+    """
+
+    def __init__(self, cfg, tc, width: int, height: int, dc: DensifyConfig, param_keys,
+                 seed: int = 0, first_iteration: int = 0,
+                 on_densify: Optional[Callable] = None):
+        from openglgaussiansplattingrenderer_tpu_torch.train import trainer
+
+        self.dc, self.seed = dc, seed
+        self.step = trainer.make_train_step(cfg, tc, width, height, with_grad_norms=True,
+                                            grad_stat=dc.statistic,
+                                            param_keys=tuple(param_keys))
+        self.optimizer = self.step.optimizer
+        self.iteration = first_iteration
+        self.on_densify = on_densify
+        self.alive = self.grad_accum = self.seen_count = self.generator = None
+        self.last_event = None
+
+    def init(self, raw: Dict[str, torch.Tensor]):
+        """The training state of raw parameters padded to ``dc.capacity``;
+        the live set is their rows, the accumulators zero and the generator
+        seeded from (seed, iteration)."""
+        padded, self.alive = pad_to_capacity(raw, self.dc.capacity)
+        dev = padded["means"].device
+        self.grad_accum = torch.zeros(self.dc.capacity, dtype=torch.float32, device=dev)
+        self.seen_count = torch.zeros(self.dc.capacity, dtype=torch.float32, device=dev)
+        self.generator = _seeded_generator(dev, self.seed, self.iteration)
+        return self.step.init(padded)
+
+    def __call__(self, state, target, *bundle):
+        from openglgaussiansplattingrenderer_tpu_torch.train import trainer
+
+        i, dc = self.iteration, self.dc
+        state, metrics = self.step(state, target, *bundle)
+        with span("gs.grad_stats"):
+            self.grad_accum, self.seen_count = accumulate_grad_stats(
+                self.grad_accum, self.seen_count, metrics["densify_grad_norm"], self.alive)
+        if dc.densifies_at(i):
+            with span("gs.densify"):
+                before = (state.raw, self.alive)
+                if self.on_densify is not None:
+                    self.last_event = {"grad_accum": self.grad_accum,
+                                       "seen_count": self.seen_count,
+                                       "opt_state": state.opt_state,
+                                       "rng_state": self.generator.get_state()}
+                new_raw, self.alive, changed, dstats = densify_and_prune(
+                    state.raw, self.alive, self.grad_accum, self.seen_count, dc,
+                    generator=self.generator, iteration=i)
+                state = trainer.TrainState(new_raw, reset_rows(state.opt_state, changed),
+                                           state.step)
+                self.grad_accum = torch.zeros_like(self.grad_accum)
+                self.seen_count = torch.zeros_like(self.seen_count)
+            if self.on_densify is not None:
+                self.last_event.update(changed=changed, new_opt_state=state.opt_state)
+                self.on_densify(i, before, (state.raw, self.alive), dstats)
+                self.last_event = None
+        if dc.resets_opacity_at(i):
+            with span("gs.opacity_reset"):
+                state = trainer.TrainState(
+                    reset_opacity(state.raw, dc.opacity_reset_ceiling),
+                    reset_opacity_moments(state.opt_state, dc.capacity), state.step)
+        self.iteration = i + 1
+        return state, metrics
+
+
+def make_adaptive_step(cfg, tc, width: int, height: int, dc: DensifyConfig, param_keys,
+                       seed: int = 0, first_iteration: int = 0,
+                       on_densify: Optional[Callable] = None) -> AdaptiveStep:
+    """The adaptive training step (``AdaptiveStep``) for render config
+    ``cfg``, train config ``tc`` and raw tensors ``param_keys``; its first
+    call runs iteration ``first_iteration`` of ``dc``'s schedule, its
+    draws come from a generator seeded from (``seed``,
+    ``first_iteration``) at ``init``."""
+    return AdaptiveStep(cfg, tc, width, height, dc, param_keys, seed, first_iteration,
+                        on_densify)
+
+
 def fit_scene_adaptive(params, targets, cameras, cfg, dc: DensifyConfig,
                        tc=None, width=None, height=None, seed: int = 0,
                        log_every: int = 50, verbose: bool = True,
                        save_every: int = 0, checkpoint_path=None, resume=None,
                        device: torch.device | str = "cuda",
                        on_densify: Optional[Callable] = None):
-    """``trainer.fit_scene`` with adaptive density control, on ``device``.
+    """``trainer.fit_scene`` with adaptive density control, on ``device``,
+    one ``make_adaptive_step`` call an iteration.
 
     Starts from ``params`` (activated, any count <= dc.capacity, tensors
     or numpy arrays), densifies and prunes every ``dc.interval`` steps in
@@ -327,18 +474,20 @@ def fit_scene_adaptive(params, targets, cameras, cfg, dc: DensifyConfig,
             k: torch.as_tensor(np.asarray(v) if not torch.is_tensor(v) else v,
                                dtype=torch.float32, device=device)
             for k, v in params.items() if v is not None})
-        raw, alive = pad_to_capacity(raw, dc.capacity)
-    step = trainer.make_train_step(cfg, tc, width, height, with_grad_norms=True,
-                                   grad_stat=dc.statistic,
-                                   param_keys=tuple(sorted(raw.keys())))
+    pending = []
+
+    def densified(i, before, after, stats):
+        pending.append((i, stats))
+        if on_densify is not None:
+            on_densify(i, before, after, stats)
+
+    step = make_adaptive_step(cfg, tc, width, height, dc, tuple(sorted(raw.keys())),
+                              seed, on_densify=densified)
     state = step.init(raw)
-    grad_accum = torch.zeros(dc.capacity, dtype=torch.float32, device=device)
-    seen_count = torch.zeros(dc.capacity, dtype=torch.float32, device=device)
-    gen = _seeded_generator(device, seed, 0)
     start_step = 0
     if resume:
         r_raw, start_step, extras = trainer.load_checkpoint_full(resume)
-        trainer.check_resume_shapes(raw, r_raw, resume)
+        trainer.check_resume_shapes(state.raw, r_raw, resume)
         if "alive" not in extras:
             raise ValueError(
                 f"resume checkpoint {resume!r} carries no densify state "
@@ -352,60 +501,40 @@ def fit_scene_adaptive(params, targets, cameras, cfg, dc: DensifyConfig,
             state = trainer.TrainState(
                 {k: torch.as_tensor(v, dtype=torch.float32, device=device)
                  for k, v in r_raw.items()}, opt, start_step)
-        alive = torch.as_tensor(extras["alive"], dtype=torch.bool, device=device)
-        grad_accum = torch.as_tensor(extras["grad_accum"], dtype=torch.float32,
-                                     device=device)
-        seen_count = torch.as_tensor(extras["seen_count"], dtype=torch.float32,
-                                     device=device)
+        step.iteration = start_step
+        step.alive = torch.as_tensor(extras["alive"], dtype=torch.bool, device=device)
+        step.grad_accum = torch.as_tensor(extras["grad_accum"], dtype=torch.float32,
+                                          device=device)
+        step.seen_count = torch.as_tensor(extras["seen_count"], dtype=torch.float32,
+                                          device=device)
         if "rng_state" in extras:
-            gen.set_state(torch.as_tensor(extras["rng_state"], dtype=torch.uint8))
+            step.generator.set_state(torch.as_tensor(extras["rng_state"], dtype=torch.uint8))
         else:
-            gen = _seeded_generator(device, seed, start_step)
+            step.generator = _seeded_generator(device, seed, start_step)
             print(f"resume: {resume} holds a jax.random key, not a torch "
                   f"generator state; draws from here on come from a generator "
                   f"seeded from (seed {seed}, step {start_step}) and are not "
                   "the JAX run's")
         if verbose:
             print(f"resumed {resume} at step {start_step} "
-                  f"(alive {int(alive.sum())})")
+                  f"(alive {int(step.alive.sum())})")
 
     cam_bundles = trainer.camera_bundles(cameras, device)
     targets = [torch.as_tensor(t if torch.is_tensor(t) else np.array(t, np.float32),
                                dtype=torch.float32, device=device) for t in targets]
 
     t0 = time.time()
-    history, pending = [], []
+    history = []
     for i in range(start_step, tc.steps):
         j = i % len(targets)
         state, metrics = step(state, targets[j], *cam_bundles[j])
-        grad_accum, seen_count = accumulate_grad_stats(
-            grad_accum, seen_count, metrics["densify_grad_norm"], alive)
-
-        if (dc.start_step <= i < dc.stop_step and i > 0
-                and i % dc.interval == 0):
-            before = (state.raw, alive)
-            new_raw, alive, changed, dstats = densify_and_prune(
-                state.raw, alive, grad_accum, seen_count, dc, generator=gen)
-            state = trainer.TrainState(new_raw, reset_rows(state.opt_state, changed),
-                                       state.step)
-            grad_accum = torch.zeros_like(grad_accum)
-            seen_count = torch.zeros_like(seen_count)
-            pending.append((i, dstats))
-            if on_densify is not None:
-                on_densify(i, before, (state.raw, alive), dstats)
-
-        if (dc.opacity_reset_interval and i > 0 and i < dc.stop_step
-                and i % dc.opacity_reset_interval == 0):
-            state = trainer.TrainState(
-                reset_opacity(state.raw, dc.opacity_reset_ceiling),
-                reset_opacity_moments(state.opt_state, dc.capacity), state.step)
-            if verbose:
-                print(f"step {i}: opacity reset (<= {dc.opacity_reset_ceiling})")
+        if verbose and dc.resets_opacity_at(i):
+            print(f"step {i}: opacity reset (<= {dc.opacity_reset_ceiling})")
 
         if i % log_every == 0 or i == tc.steps - 1:
             # float(...) waits for the queued steps, so wall_s is honest
             m = {"loss": float(metrics["loss"]), "psnr": float(metrics["psnr"]),
-                 "alive": int(alive.sum())}
+                 "alive": int(step.alive.sum())}
             history.append({"step": i, **m, "wall_s": round(time.time() - t0, 3)})
             if verbose:
                 for s, d in pending:
@@ -418,11 +547,11 @@ def fit_scene_adaptive(params, targets, cameras, cfg, dc: DensifyConfig,
                 and ((i + 1) % save_every == 0 or i == tc.steps - 1)):
             trainer.save_checkpoint(
                 checkpoint_path, state.raw, step=i + 1, opt_state=state.opt_state,
-                alive=alive, grad_accum=grad_accum, seen_count=seen_count,
-                rng_state=gen.get_state())
+                alive=step.alive, grad_accum=step.grad_accum, seen_count=step.seen_count,
+                rng_state=step.generator.get_state())
 
     with torch.no_grad():
-        return trainer.params_from_raw(state.raw), alive, history
+        return trainer.params_from_raw(state.raw), step.alive, history
 
 
 def compact_params(params: Dict[str, torch.Tensor], alive) -> Dict[str, np.ndarray]:

@@ -28,6 +28,7 @@ from openglgaussiansplattingrenderer_tpu_torch.ops.transforms import (
 )
 from openglgaussiansplattingrenderer_tpu_torch.render import render_arrays
 from openglgaussiansplattingrenderer_tpu_torch.train import losses
+from openglgaussiansplattingrenderer_tpu_torch.utils import device as device_
 from openglgaussiansplattingrenderer_tpu_torch.utils.timing import span
 
 DEFAULT_KEYS = ("means", "log_scales", "quats", "logit_opacities", "colors")
@@ -148,7 +149,9 @@ def make_train_step(cfg: RenderConfig, tc: TrainConfig, width: int,
                     param_keys=None) -> Callable:
     """(state, target, camera args) -> (state, metrics) step. The step runs
     on the device the state's tensors lie on; ``target`` and the matrices
-    must lie there too. Metrics are 0-d tensors (no host sync).
+    must lie there too. Metrics are 0-d tensors (no host sync): ``loss``,
+    ``psnr`` and ``overflow``, the frame's records past its capacity
+    (``render_arrays``'s stat; a step with records dropped is no good step).
 
     ``with_grad_norms`` adds a per-splat ``densify_grad_norm`` (N,) tensor
     to the metrics, the selection statistic of adaptive density control.
@@ -172,13 +175,13 @@ def make_train_step(cfg: RenderConfig, tc: TrainConfig, width: int,
         params = params_from_raw(raw)
         if shift2d is not None:
             params["shift2d"] = shift2d
-        img, _ = render_arrays(params, view, vp, fx, fy, tfx, tfy,
-                               width, height, cfg)
+        img, stats = render_arrays(params, view, vp, fx, fy, tfx, tfy,
+                                   width, height, cfg)
         pred = img[..., :3]
         with span("gs.loss"):
             if loss_fn is not None:
-                return loss_fn(pred, target), pred
-            return losses.gs_loss(pred, target, tc.lambda_dssim), pred
+                return loss_fn(pred, target), pred, stats["overflow"]
+            return losses.gs_loss(pred, target, tc.lambda_dssim), pred, stats["overflow"]
 
     def run(state: TrainState, target, view, vp, fx, fy, tfx, tfy
             ) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
@@ -189,21 +192,21 @@ def make_train_step(cfg: RenderConfig, tc: TrainConfig, width: int,
             if screen:
                 shift = torch.zeros((raw["means"].shape[0], 2), dtype=torch.float32,
                                     device=raw["means"].device, requires_grad=True)
-            loss, pred = loss_of(raw, shift, target, view, vp, fx, fy, tfx, tfy)
+            loss, pred, overflow = loss_of(raw, shift, target, view, vp, fx, fy, tfx, tfy)
             wrt = [raw[k] for k in keys] + ([shift] if screen else [])
             gs = torch.autograd.grad(loss, wrt)
             grads = dict(zip(keys, gs))
             with torch.no_grad():
                 metrics = {"loss": loss.detach(),
-                           "psnr": losses.psnr(pred.detach(), target)}
-                if screen:
-                    # pixel gradients scaled to NDC units (x_ndc = 2 x_px / W)
-                    scale = gs[-1].new_tensor([width / 2.0, height / 2.0])
-                    metrics["densify_grad_norm"] = torch.linalg.vector_norm(
-                        gs[-1] * scale, dim=-1)
-                elif with_grad_norms:
-                    metrics["densify_grad_norm"] = torch.linalg.vector_norm(
-                        grads["means"], dim=-1)
+                           "psnr": losses.psnr(pred.detach(), target),
+                           "overflow": overflow}
+                if with_grad_norms:
+                    with span("gs.grad_stats"):
+                        # screen: pixel gradients scaled to NDC units (x_ndc = 2 x_px / W)
+                        g = (gs[-1] * device_.constant((width / 2.0, height / 2.0),
+                                                       torch.float32, gs[-1].device)
+                             if screen else grads["means"])
+                        metrics["densify_grad_norm"] = torch.linalg.vector_norm(g, dim=-1)
                 with span("gs.adam"):
                     new_raw, opt_state = optimizer.update(
                         grads, state.opt_state, {k: raw[k].detach() for k in keys})

@@ -198,7 +198,7 @@ def test_world_grad_norm_and_custom_loss_match_jax(jax_run):
     _, plain = _port_step(tc)
     _, m = plain(plain.init(convert.raw_from_numpy(jax_run["raw0"], "cpu")),
                  torch.from_numpy(jax_run["target"]), *_port_bundle(b))
-    assert set(m) == {"loss", "psnr"}
+    assert set(m) == {"loss", "psnr", "overflow"} and int(m["overflow"]) == 0
 
 
 def test_jax_checkpoint_continues_in_the_port(jax_run):
